@@ -1,0 +1,153 @@
+"""zedo_tpu_torch zero-shot solve (IPO -> OIL over S hypotheses) against the
+JAX package on the committed trained fixture (hidden 256)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zedo_tpu import bench_trained as jbt
+from zedo_tpu.diffusion.sampling import PCSampler as JPCSampler
+from zedo_tpu.diffusion.sde import SubVPSDE as JSubVPSDE
+from zedo_tpu.zeroshot import ipo as jipo
+from zedo_tpu.zeroshot import oil as joil
+from zedo_tpu.zeroshot import pipeline as jpipe
+from zedo_tpu_torch import bench_trained as tbt
+from zedo_tpu_torch.diffusion.sampling import PCSampler as TPCSampler
+from zedo_tpu_torch.diffusion.sde import SubVPSDE as TSubVPSDE
+from zedo_tpu_torch.ops.kernels import score_kernel as tsk
+from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.zeroshot import ipo as tipo
+from zedo_tpu_torch.zeroshot import oil as toil
+from zedo_tpu_torch.zeroshot import pipeline as tpipe
+
+IPO_ITERS, OIL_ITERS, N, S = 60, 25, 5, 2
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    jcfg, jparams, family = jbt.load_fixture()
+    tcfg, tparams, _ = tbt.load_fixture(device="cpu")
+    gt, k, px = tbt.make_scenes(family, N)
+    clusters = tbt.make_hypothesis_clusters(family, S)
+    return jcfg, jparams, tcfg, tparams, gt, k, px, clusters
+
+
+def _jax_solve(fx, bf16=False, **oil_kw):
+    jcfg, jparams, _, _, _, k, px, clusters = fx
+    sde = JSubVPSDE(beta_min=0.1, beta_max=20.0, n=OIL_ITERS, t_max=0.1)
+    sampler = JPCSampler(sde=sde, eps=0.01)
+    zcfg = jpipe.ZeDOConfig(ipo=jipo.IPOConfig(iterations=IPO_ITERS),
+                            oil=joil.OILConfig(iterations=OIL_ITERS, **oil_kw))
+    params = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams) if bf16 else jparams
+    res = jpipe.solve(params, jcfg, sde, sampler, zcfg, jnp.asarray(clusters),
+                      jnp.asarray(px), None, jnp.asarray(k),
+                      precision=None if bf16 else jax.lax.Precision.HIGHEST)
+    return np.asarray(res.poses), np.asarray(res.translations)
+
+
+def _torch_solve(fx, bf16=False, **oil_kw):
+    _, _, tcfg, tparams, _, k, px, clusters = fx
+    sde = TSubVPSDE(beta_min=0.1, beta_max=20.0, n=OIL_ITERS, t_max=0.1)
+    sampler = TPCSampler(sde=sde, eps=0.01)
+    zcfg = tpipe.ZeDOConfig(ipo=tipo.IPOConfig(iterations=IPO_ITERS),
+                            oil=toil.OILConfig(iterations=OIL_ITERS, **oil_kw))
+    params = _tree_map(lambda a: a.to(torch.bfloat16), tparams) if bf16 else tparams
+    res = tpipe.solve(params, tcfg, sde, sampler, zcfg, torch.tensor(clusters),
+                      torch.tensor(px), None, torch.tensor(k))
+    return res.poses.numpy(), res.translations.numpy()
+
+
+def test_solve_matches_jax_fp32(fixture):
+    gt = fixture[4]
+    want_p, want_t = _jax_solve(fixture)
+    got_p, got_t = _torch_solve(fixture)
+    assert got_p.shape == (N, S, 17, 3) and got_t.shape == (N, S, 1, 3)
+    np.testing.assert_allclose(got_p, want_p, atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(got_t, want_t, atol=1e-4, rtol=1e-3)
+    assert abs(tbt.best_mpjpe(got_p, gt) - tbt.best_mpjpe(want_p, gt)) < 0.1
+
+
+def test_solve_score_reuse_matches_jax(fixture):
+    """score_reuse=2. IPO from a cluster init far from the solution (L1 loss
+    under Adam) amplifies f32 rounding differences between the frameworks
+    to ~1e-3 after 60 steps; OIL contracts them, less so when it evaluates
+    the prior every other step. So the poses are held at 2 mm and the
+    metric at 0.1 mm."""
+    gt = fixture[4]
+    want_p, _ = _jax_solve(fixture, score_reuse=2)
+    got_p, _ = _torch_solve(fixture, score_reuse=2)
+    np.testing.assert_allclose(got_p, want_p, atol=2e-3)
+    assert abs(tbt.best_mpjpe(got_p, gt) - tbt.best_mpjpe(want_p, gt)) < 0.1
+    one_p, _ = _torch_solve(fixture)
+    assert np.abs(one_p - got_p).max() > 1e-5  # reuse really changed the dynamics
+
+
+@pytest.mark.parametrize("gn_fp32", [False, True])
+def test_solve_kernel_path_bf16_matches_jax(fixture, gn_fp32):
+    """The fused-kernel path with bf16 weights (the plain version on the
+    CPU) against the JAX Pallas kernel in interpret mode."""
+    gt = fixture[4]
+    want_p, _ = _jax_solve(fixture, bf16=True, use_pallas=True, pallas_interpret=True,
+                           gn_fp32=gn_fp32)
+    before = tsk.launch_counts["fused_score_forward"]
+    got_p, _ = _torch_solve(fixture, bf16=True, use_kernel=True, gn_fp32=gn_fp32)
+    assert tsk.launch_counts["fused_score_forward"] == before  # CPU: no kernel launch
+    assert np.isfinite(got_p).all()
+    assert abs(tbt.best_mpjpe(got_p, gt) - tbt.best_mpjpe(want_p, gt)) < 0.5
+
+
+def test_solve_one_hypothesis_is_a_column_of_solve(fixture):
+    _, _, tcfg, tparams, _, k, px, clusters = fixture
+    sde = TSubVPSDE(beta_min=0.1, beta_max=20.0, n=10, t_max=0.1)
+    zcfg = tpipe.ZeDOConfig(ipo=tipo.IPOConfig(iterations=10), oil=toil.OILConfig(iterations=10))
+    args = (tparams, tcfg, sde, TPCSampler(sde=sde, eps=0.01), zcfg)
+    full = tpipe.solve(*args, torch.tensor(clusters), torch.tensor(px), None, torch.tensor(k))
+    one = tpipe.solve_one_hypothesis(*args, torch.tensor(clusters[1]), torch.tensor(px),
+                                     None, torch.tensor(k))
+    torch.testing.assert_close(one.pose, full.poses[:, 1])
+
+
+def test_unported_oil_paths_raise(fixture):
+    _, _, tcfg, tparams, _, k, px, clusters = fixture
+    sde = TSubVPSDE(n=10, t_max=0.1)
+    args = (tparams, tcfg, sde)
+    x = torch.zeros(N, 17, 3)
+    t0 = torch.zeros(N, 1, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        toil.run_oil(*args, TPCSampler(sde=sde, corrector="langevin"), x, t0,
+                     torch.tensor(px), torch.tensor(k), None, toil.OILConfig(iterations=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        toil.run_oil(*args, TPCSampler(sde=sde), x, t0, torch.tensor(px), torch.tensor(k),
+                     None, toil.OILConfig(iterations=2, track_reproj=True))
+
+
+def test_chip_smoke_reference_mpjpe():
+    """chip_smoke.py holds the port on the card to the JAX package's
+    best-hypothesis MPJPE on the trained fixture; recompute those values."""
+    import importlib.util
+    import os
+
+    from zedo_tpu.utils.checkpoint import convert_cluster_file
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    jcfg, jparams, family = jbt.load_fixture()
+    gt, k, px = jbt.make_scenes(family, smoke.FIXTURE_SCENES)
+    clusters = np.asarray(convert_cluster_file(tbt.CLUSTERS), np.float32)
+    sde = JSubVPSDE(beta_min=0.1, beta_max=20.0, n=smoke.FIXTURE_OIL, t_max=0.1)
+    sampler = JPCSampler(sde=sde, eps=0.01)
+    runs = {"fp32": (jparams, {}, jax.lax.Precision.HIGHEST),
+            "bf16": (jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams),
+                     dict(use_pallas=True, pallas_interpret=True, gn_fp32=True), None)}
+    for name, (params, oil_kw, precision) in runs.items():
+        zcfg = jpipe.ZeDOConfig(ipo=jipo.IPOConfig(iterations=smoke.FIXTURE_IPO),
+                                oil=joil.OILConfig(iterations=smoke.FIXTURE_OIL, **oil_kw))
+        res = jpipe.solve(params, jcfg, sde, sampler, zcfg, jnp.asarray(clusters),
+                          jnp.asarray(px), None, jnp.asarray(k), precision=precision)
+        got = tbt.best_mpjpe(np.asarray(res.poses), gt)
+        assert abs(got - smoke.JAX_FIXTURE_MPJPE_MM[name]) < 1e-2, (name, got)

@@ -1,0 +1,40 @@
+"""Batch padding to a bucket multiple (the port's own copy of `pad_batch` and
+`unpad` from zedo_tpu/data/sharding.py; numpy only)."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def pad_batch(arrays, multiple: int, axis: int = 0):
+    """Pad the leading axis of every array to a multiple of `multiple` by edge
+    replication; returns (padded, mask) where mask [padded_n] is 1 for real
+    rows. Edge replication (not zeros) keeps padded rows numerically benign
+    inside solvers (no singular K, no 0/0 rays). None entries stay None."""
+
+    def pad_one(a):
+        a = np.asarray(a)
+        n = a.shape[axis]
+        if n == 0:
+            raise ValueError("pad_batch got an empty batch (0 rows)")
+        target = -(-n // multiple) * multiple
+        if target == n:
+            return a
+        rows = np.repeat(np.take(a, [-1], axis=axis), target - n, axis=axis)
+        return np.concatenate([a, rows], axis=axis)
+
+    values = list(arrays.values()) if isinstance(arrays, dict) else list(arrays)
+    if all(v is None for v in values):
+        raise ValueError("pad_batch got only None arrays")
+    if isinstance(arrays, dict):
+        padded = {k: None if v is None else pad_one(v) for k, v in arrays.items()}
+    else:
+        padded = type(arrays)(None if v is None else pad_one(v) for v in arrays)
+    n = next(np.asarray(v).shape[axis] for v in values if v is not None)
+    mask = np.zeros((-(-n // multiple) * multiple,), np.float32)
+    mask[:n] = 1.0
+    return padded, mask
+
+
+def unpad(array: np.ndarray, mask: np.ndarray, axis: int = 0) -> np.ndarray:
+    """Strip the padded tail given the mask from `pad_batch`."""
+    return np.take(array, np.arange(int(mask.sum())), axis=axis)

@@ -1,0 +1,131 @@
+"""Serving API: load once, predict many times.
+
+Port of zedo_tpu/serving.py (single device; multi-GPU serving waits for
+the multi-GPU slice).
+
+    est = ZeDOEstimator.from_torch_checkpoint(
+        "checkpoint_1500.pth", "clusters/h36m_cluster5.npy", dtype="bf16")
+    out = est.predict(kp2d, K)   # poses [N, S, 17, 3], best [N], ...
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from zedo_tpu_torch import presets
+from zedo_tpu_torch.data.sharding import pad_batch, unpad
+from zedo_tpu_torch.ops.camera import project
+from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_torch_checkpoint
+from zedo_tpu_torch.utils.config import resolve_device
+from zedo_tpu_torch.zeroshot import pipeline
+
+
+def _rank_and_pack(poses, trans, kp2d, k):
+    """On-device hypothesis ranking by reprojection error [N, S], packed
+    with the poses and translations into ONE f32 buffer so predict() makes
+    a single device-to-host copy."""
+    n = poses.shape[0]
+    proj = project(poses + trans, k[:, None])
+    err = (proj - kp2d[:, None, :, :2]).abs().mean(dim=(2, 3))  # [N, S]
+    return torch.cat([poses.reshape(n, -1).float(), trans.reshape(n, -1).float(),
+                      err.float()], dim=1)
+
+
+@dataclasses.dataclass
+class ZeDOEstimator:
+    params: dict
+    model_cfg: object
+    sde: object
+    sampler: object
+    zcfg: object
+    clusters: np.ndarray  # [S, j, 3]
+    device: torch.device
+    batch_bucket: int = 256  # pad N up to a multiple
+
+    @classmethod
+    def from_torch_checkpoint(cls, ckpt_path: str, cluster_path: str,
+                              preset: Optional[presets.Preset] = None,
+                              dtype: str = "bf16", batch_bucket: int = 256,
+                              device="cuda") -> "ZeDOEstimator":
+        """preset: the serving configuration (default presets.h36m());
+        dtype 'bf16' runs the score network in bf16 (the fused CUDA kernel
+        on the card), 'fp32' in full f32."""
+        if dtype not in ("bf16", "fp32"):
+            raise ValueError(f"dtype must be 'bf16' or 'fp32', got {dtype!r}")
+        dev = resolve_device(device)
+        preset = preset or presets.h36m()
+        # the raw weights: the reference loads EMA at inference but never applies it
+        params = load_torch_checkpoint(ckpt_path, preset.model_cfg, dev)["params"]
+        if dtype == "bf16":
+            params = _tree_map(lambda x: x.to(torch.bfloat16), params)
+        clusters = np.asarray(convert_cluster_file(cluster_path), np.float32)
+        return cls(params=params, model_cfg=preset.model_cfg, sde=preset.sde,
+                   sampler=preset.sampler, zcfg=preset.zcfg, clusters=clusters,
+                   device=dev, batch_bucket=batch_bucket)
+
+    def with_schedule(self, oil_iterations: Optional[int],
+                      ipo_iterations: Optional[int] = None,
+                      score_reuse: Optional[int] = None) -> "ZeDOEstimator":
+        """Short-schedule variant for latency-bound serving.
+
+        Re-discretizes the reverse schedule: the SAME T->eps annealing is
+        integrated with `oil_iterations` larger Euler steps (the SDE's step
+        count N is set to `oil_iterations`, so dt = 1/iterations). Naive
+        truncation, keeping dt = 1/1000, would integrate only part of the
+        annealing. `oil_iterations=None` keeps the current OIL schedule.
+        Returns a NEW estimator; the original is untouched."""
+        if oil_iterations is None:
+            sde, sampler, oil_kw = self.sde, self.sampler, {}
+        else:
+            sde = dataclasses.replace(self.sde, n=oil_iterations)
+            sampler = dataclasses.replace(self.sampler, sde=sde)
+            oil_kw = {"iterations": oil_iterations}
+        if score_reuse is not None:
+            oil_kw["score_reuse"] = score_reuse
+        zcfg = dataclasses.replace(
+            self.zcfg,
+            ipo=(self.zcfg.ipo if ipo_iterations is None else
+                 dataclasses.replace(self.zcfg.ipo, iterations=ipo_iterations)),
+            oil=dataclasses.replace(self.zcfg.oil, **oil_kw),
+        )
+        return dataclasses.replace(self, sde=sde, sampler=sampler, zcfg=zcfg)
+
+    def low_latency(self) -> "ZeDOEstimator":
+        """The low-latency preset: OIL 200 (re-discretized), IPO 100."""
+        return self.with_schedule(200, ipo_iterations=100)
+
+    def predict(self, keypoints_2d: np.ndarray, k: np.ndarray,
+                confidence: Optional[np.ndarray] = None) -> dict:
+        """keypoints_2d [N, j, 2], k [N, 3, 3], confidence [N, j] or None
+        -> dict(poses [N, S, j, 3], translations [N, S, 1, 3], best [N]
+        argmin-reprojection hypothesis index, reprojection_error [N, S])."""
+        n = len(keypoints_2d)
+        padded, mask = pad_batch(
+            {"kp": np.asarray(keypoints_2d, np.float32),
+             "k": np.asarray(k, np.float32),
+             "conf": None if confidence is None else np.asarray(confidence, np.float32)},
+            self.batch_bucket)
+
+        def put(a):
+            return None if a is None else torch.from_numpy(a).to(self.device)
+
+        kp, kk, conf = put(padded["kp"]), put(padded["k"]), put(padded["conf"])
+        clusters = torch.from_numpy(self.clusters).to(self.device)
+        with torch.no_grad():
+            result = pipeline.solve(self.params, self.model_cfg, self.sde, self.sampler,
+                                    self.zcfg, clusters, kp, conf, kk)
+            packed = _rank_and_pack(result.poses, result.translations, kp, kk)
+        host = unpad(packed.cpu().numpy(), mask)  # the one device-to-host copy
+        s, j = len(self.clusters), self.model_cfg.n_joints
+        poses = host[:, :s * j * 3].reshape(n, s, j, 3)
+        trans = host[:, s * j * 3:s * j * 3 + s * 3].reshape(n, s, 1, 3)
+        err = host[:, s * j * 3 + s * 3:]
+        return {"poses": poses, "translations": trans, "best": err.argmin(axis=1),
+                "reprojection_error": err}
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}

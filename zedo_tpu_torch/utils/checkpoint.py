@@ -1,0 +1,112 @@
+"""Checkpoint I/O: reference torch .pth files and weights from the JAX package.
+
+Port of the .pth half of zedo_tpu/utils/checkpoint.py. The reference ships
+checkpoints whose state_dict keys follow ScoreModelFC_Adv's module names,
+wrapped in DataParallel's `module.` prefix, inside a dict {epoch,
+model_state_dict, optimizer_state_dict, ema, step}. The port's params keep
+those names (`[out, in]` weights), so a state_dict loads directly.
+"""
+from __future__ import annotations
+
+import pickle
+
+import numpy as np
+import torch
+
+from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, get_sigmas
+from zedo_tpu_torch.utils.config import resolve_device
+
+
+def _param_order(cfg: ScoreMLPConfig) -> list[str]:
+    """torch parameter definition order of ScoreModelFC_Adv: maps the EMA
+    shadow_params LIST (trainables only) back to names."""
+    names = [
+        "pre_dense.weight", "pre_dense.bias",
+        "pre_dense_t.weight", "pre_dense_t.bias",
+        "pre_gnorm.weight", "pre_gnorm.bias",
+        "shared_time_embed.0.weight", "shared_time_embed.0.bias",
+    ]
+    for idx in range(cfg.n_blocks):
+        for layer in ("dense1", "dense1_t", "gnorm1", "dense2", "dense2_t", "gnorm2"):
+            names += [f"b{idx + 1}_{layer}.weight", f"b{idx + 1}_{layer}.bias"]
+    names += ["post_dense.weight", "post_dense.bias"]
+    return names
+
+
+def strip_module_prefix(state_dict: dict) -> dict:
+    """Remove DataParallel's 'module.' prefix."""
+    return {(k[7:] if k.startswith("module.") else k): v for k, v in state_dict.items()}
+
+
+def _flat_to_tree(flat: dict, device) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.as_tensor(np.asarray(value)).to(device)
+    return tree
+
+
+def params_from_torch_state_dict(state_dict: dict, cfg: ScoreMLPConfig,
+                                 device="cuda") -> dict:
+    """torch state_dict (possibly DataParallel-prefixed) -> params dict."""
+    dev = resolve_device(device)
+    flat = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in strip_module_prefix(state_dict).items()}
+    tree = _flat_to_tree(flat, dev)
+    if "sigmas" not in tree:
+        tree["sigmas"] = torch.as_tensor(get_sigmas(cfg), dtype=torch.float32,
+                                         device=dev)
+    return tree
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """Nested dicts of numpy arrays (e.g. a JAX params pytree passed through
+    np.asarray) -> the port's params, same keys, same dtypes."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch counterpart
+            return torch.as_tensor(a.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    return conv(tree)
+
+
+def _merge(base: dict, override: dict) -> dict:
+    out = dict(base)
+    for k, v in override.items():
+        out[k] = _merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
+def load_torch_checkpoint(path: str, cfg: ScoreMLPConfig, device="cuda") -> dict:
+    """Reference .pth -> {params, ema_params (merged over params) or None,
+    step, epoch}. The reference loads EMA at inference but never applies
+    it, so callers use `params` unless they opt into the shadow weights."""
+    dev = resolve_device(device)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    params = params_from_torch_state_dict(ckpt["model_state_dict"], cfg, dev)
+    ema_params = None
+    ema = ckpt.get("ema")
+    if ema is not None:
+        names = _param_order(cfg)
+        shadow = ema["shadow_params"]
+        if len(names) == len(shadow):
+            flat = {n: p.detach().cpu().numpy() for n, p in zip(names, shadow)}
+            ema_params = _merge(params, _flat_to_tree(flat, dev))
+    return {"params": params, "ema_params": ema_params,
+            "step": int(ckpt.get("step", 0)), "epoch": int(ckpt.get("epoch", 0))}
+
+
+def convert_cluster_file(path: str) -> np.ndarray:
+    """Cluster init poses from .npy or .pkl (the reference ships both names)."""
+    if path.endswith(".npy"):
+        return np.load(path, allow_pickle=True)
+    with open(path, "rb") as f:
+        return np.asarray(pickle.load(f))
