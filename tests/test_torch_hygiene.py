@@ -12,6 +12,7 @@ from zedo_tpu_torch import bench_trained as tbt
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.models import score_mlp as tsm
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
+from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
 from zedo_tpu_torch.serving import ZeDOEstimator, _tree_map
 from zedo_tpu_torch.zeroshot import oil as toil
 
@@ -57,15 +58,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_kernel_wrapper_never_falls_back():
     _no_cuda()
-    with pytest.raises(RuntimeError, match="CUDA device"):
-        tsk.load_library()
+    for module in (tsk, tsplit):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            module.load_library()
     cfg = tsm.ScoreMLPConfig(hidden_dim=128, embed_dim=64)
     params = tsm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     packed = tsk.pack_weights(params, cfg, gn_dtype=torch.float32)
     vecs = tsk.step_vectors(packed, torch.zeros(64))
     # a tensor that is not on the CPU never reaches the plain version
-    with pytest.raises(ValueError, match="unsupported device"):
-        tsk.fused_score_forward(torch.zeros(4, 51, device="meta"), packed, vecs)
+    for wrapper in (tsk.fused_score_forward, tsplit.fused_score_forward_split):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(torch.zeros(4, 51, device="meta"), packed, vecs)
     # on the CPU the kernel path is never chosen automatically
     bf16 = _tree_map(lambda a: a.to(torch.bfloat16), params)
     assert not toil._kernel_eligible(bf16, cfg)

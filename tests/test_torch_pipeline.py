@@ -141,9 +141,12 @@ def test_chip_smoke_reference_mpjpe():
     clusters = np.asarray(convert_cluster_file(tbt.CLUSTERS), np.float32)
     sde = JSubVPSDE(beta_min=0.1, beta_max=20.0, n=smoke.FIXTURE_OIL, t_max=0.1)
     sampler = JPCSampler(sde=sde, eps=0.01)
+    bf16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    kernel = dict(use_pallas=True, pallas_interpret=True)
     runs = {"fp32": (jparams, {}, jax.lax.Precision.HIGHEST),
-            "bf16": (jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams),
-                     dict(use_pallas=True, pallas_interpret=True, gn_fp32=True), None)}
+            "bf16": (bf16, dict(kernel, gn_fp32=False), None),
+            "bf16_gn_fp32": (bf16, dict(kernel, gn_fp32=True), None)}
+    assert set(runs) == set(smoke.JAX_FIXTURE_MPJPE_MM)
     for name, (params, oil_kw, precision) in runs.items():
         zcfg = jpipe.ZeDOConfig(ipo=jipo.IPOConfig(iterations=smoke.FIXTURE_IPO),
                                 oil=joil.OILConfig(iterations=smoke.FIXTURE_OIL, **oil_kw))
@@ -151,3 +154,28 @@ def test_chip_smoke_reference_mpjpe():
                           jnp.asarray(px), None, jnp.asarray(k), precision=precision)
         got = tbt.best_mpjpe(np.asarray(res.poses), gt)
         assert abs(got - smoke.JAX_FIXTURE_MPJPE_MM[name]) < 1e-2, (name, got)
+
+
+@pytest.mark.parametrize("gn_fp32", [False, True])
+def test_kernel_gn_dtype_follows_gn_fp32_alone(fixture, monkeypatch, gn_fp32):
+    """The GroupNorm statistics dtype that reaches pack_weights is f32 with
+    gn_fp32 and the weight dtype (bf16) without it, whatever the device:
+    the card computes JAX's default function."""
+    _, _, tcfg, tparams, _, k, px, _ = fixture
+    seen = []
+    pack = tsk.pack_weights
+
+    def spy(params, cfg, dtype=torch.bfloat16, gn_dtype=None):
+        seen.append(gn_dtype)
+        return pack(params, cfg, dtype=dtype, gn_dtype=gn_dtype)
+
+    monkeypatch.setattr(tsk, "pack_weights", spy)
+    sde = TSubVPSDE(beta_min=0.1, beta_max=20.0, n=3, t_max=0.1)
+    params = _tree_map(lambda a: a.to(torch.bfloat16), tparams)
+    cfg = toil.OILConfig(iterations=3, use_kernel=True, gn_fp32=gn_fp32)
+    x = torch.zeros(N, 17, 3)
+    toil.run_oil(params, tcfg, sde, TPCSampler(sde=sde, eps=0.01), x, torch.zeros(N, 1, 3),
+                 torch.tensor(px), torch.tensor(k), None, cfg)
+    assert seen == [torch.float32 if gn_fp32 else None]
+    packed = pack(params, tcfg, gn_dtype=seen[0])
+    assert packed.ind.dtype == (torch.float32 if gn_fp32 else torch.bfloat16)

@@ -70,9 +70,12 @@ def test_plain_forward_matches_pallas_f32():
     np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("hidden", [256, 384])
 @pytest.mark.parametrize("gn_dtype", [None, jnp.float32])
-def test_plain_forward_matches_pallas_bf16(gn_dtype):
-    jcfg, tcfg, jparams, tparams = _setup(256, 128)
+def test_plain_forward_matches_pallas_bf16(gn_dtype, hidden):
+    """bf16 weights, GroupNorm statistics in bf16 (the default) or f32; hidden
+    384 has groups of 12 channels."""
+    jcfg, tcfg, jparams, tparams = _setup(hidden, 128)
     x = np.random.RandomState(1).randn(64, 51).astype(np.float32)
     want, got = _run_both(jcfg, tcfg, jparams, tparams, x, 12.0, jnp.bfloat16, gn_dtype)
     # the same products on the same bf16 operands; only the f32 summation
@@ -112,10 +115,30 @@ def test_analytic_flops_and_pad_rows():
     assert tsk.pad_rows(torch.ones(128, 7), 64).shape == (128, 7)
 
 
-def test_kernel_supports_widths():
-    assert tsk.kernel_supports(tsm.ScoreMLPConfig())
-    assert tsk.kernel_supports(tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128))
-    assert tsk.kernel_supports(tsm.ScoreMLPConfig(hidden_dim=128, embed_dim=64))
-    assert not tsk.kernel_supports(tsm.ScoreMLPConfig(hidden_dim=2048))  # groups of 64
-    assert not tsk.kernel_supports(tsm.ScoreMLPConfig(hidden_dim=192))
-    assert not tsk.kernel_supports(tsm.ScoreMLPConfig(n_blocks=3))
+def _jax_contract(hidden, n_blocks, monkeypatch):
+    """JAX's `_pallas_eligible` for bf16 weights on a TPU-class backend."""
+    from zedo_tpu.utils import config as jconfig
+    from zedo_tpu.zeroshot import oil as joil
+
+    monkeypatch.setattr(jconfig, "is_tpu_like", lambda: True)
+    params = {"post_dense": {"weight": jnp.zeros((1, 1), jnp.bfloat16)}}
+    return joil._pallas_eligible(params, jsm.ScoreMLPConfig(hidden_dim=hidden,
+                                                            n_blocks=n_blocks))
+
+
+@pytest.mark.parametrize("hidden,n_blocks", [(h, 2) for h in range(128, 2049, 128)]
+                         + [(192, 2), (1024, 3), (256, 1)])
+def test_kernel_supports_widths(hidden, n_blocks, monkeypatch):
+    """The CUDA kernel takes exactly the architectures JAX runs through
+    Pallas; each lane-aligned width gets a column tile that is a multiple of
+    16 and of its GroupNorm group and divides the width."""
+    cfg = tsm.ScoreMLPConfig(hidden_dim=hidden, n_blocks=n_blocks)
+    assert tsk.kernel_supports(cfg) == _jax_contract(hidden, n_blocks, monkeypatch)
+    if hidden % 128 == 0:
+        group = hidden // cfg.group_norm_groups
+        tile = tsk.column_tile(hidden, group)
+        assert tile % 16 == 0 and tile % group == 0 and hidden % tile == 0
+        assert 80 <= tile <= 256
+        want = {4: 128, 8: 128, 16: 128, 32: 128, 64: 128, 12: 96, 24: 96, 20: 80,
+                28: 112, 36: 144}
+        assert tile == want.get(group, tile)

@@ -4,14 +4,15 @@ Port of zedo_tpu/ops/pallas/score_kernel.py. The kernel itself is
 `csrc/score_mlp.cu` (see its header for the design and what bounds it): one
 templated bf16 tensor-core GEMM whose epilogue applies GroupNorm, SiLU and
 the residual add, launched once per dense layer. It is built with `nvcc`
-for sm_90a into a shared library with a plain C interface at first use,
-under `build/zedo_tpu_torch/<source hash>/` beside the package, and called
-through ctypes on PyTorch's current stream.
+for sm_90a at first use (`build.py`) and called through ctypes on
+PyTorch's current stream.
 
 Packing is the same as the TPU kernel's: dense weights in input-major
 layout, pre-centred by (I - P) so GroupNorm only reduces the variance,
 time dependence folded into per-step [5, H] vectors (`step_vectors`), the
-51-wide pose padded to 128 columns in the weights.
+51-wide pose padded to 128 columns in the weights. The GroupNorm statistics
+run in the dtype `ind` was packed in (`pack_weights(gn_dtype=...)`), bf16
+or f32, in the plain version and in the kernel alike.
 
 `fused_score_forward` launches the kernel for CUDA tensors and takes the
 plain version (`fused_score_forward_reference`, a transcription of the TPU
@@ -20,32 +21,27 @@ kernel's `_kernel` and `_gn_silu`) only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from zedo_tpu_torch.ops.kernels import build
+
 LANE = 128
 GN_EPS = 1e-5
 
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("score_mlp.cu",)
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zedo_tpu_torch"
-
-# launches of the CUDA kernel, by wrapper; the wrappers add one per launch
+# launches of the CUDA kernel, by wrapper, and of fused_score_forward by
+# GroupNorm statistics mode; the wrapper adds one to each per launch
 launch_counts = {"fused_score_forward": 0}
+gn_mode_launches = {"bf16": 0, "f32": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, gn_mode_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 class PackedScoreWeights(NamedTuple):
@@ -68,8 +64,8 @@ def pack_weights(params: dict, cfg, dtype=torch.bfloat16,
                  gn_dtype=None) -> PackedScoreWeights:
     """ScoreMLP params (torch [out, in] layout) -> the kernel's padded
     input-major layout, on the params' device. gn_dtype is the GroupNorm
-    statistics dtype of the plain version (defaults to `dtype`); the CUDA
-    kernel reduces in f32 and takes only gn_dtype=float32."""
+    statistics dtype (defaults to `dtype`); the CUDA kernel takes bf16 and
+    float32."""
     gn_dtype = gn_dtype or dtype
     if cfg.n_blocks != 2:
         raise ValueError("the fused kernel specializes the shipped 2-block config")
@@ -148,6 +144,17 @@ def _gn_silu(centered, ind, bcast_scaled, bias):
     return xn * (0.5 * torch.tanh(0.5 * xn) + 0.5)
 
 
+def dense(a, w, vec):
+    """One dense layer of the plain versions: the product on operands rounded
+    to the weight dtype, accumulated in f32, plus the f32 step vector."""
+    return a.to(w.dtype).float() @ w.float() + vec[None]
+
+
+def gn(a, packed: PackedScoreWeights, layer: int):
+    """GroupNorm + SiLU of GroupNorm layer `layer` (0..4)."""
+    return _gn_silu(a, packed.ind, packed.bcast_scaled[layer], packed.gn_bias[layer][None])
+
+
 def fused_score_forward_reference(x: torch.Tensor, packed: PackedScoreWeights,
                                   vecs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the fused forward: x [B, C] f32 (C <= io_pad,
@@ -155,99 +162,51 @@ def fused_score_forward_reference(x: torch.Tensor, packed: PackedScoreWeights,
     operands rounded to the packed weight dtype, accumulated in f32."""
     b, c = x.shape
     io_pad = packed.w_pre.shape[0]
-    dt = packed.w_pre.dtype
     h = torch.nn.functional.pad(x.float(), (0, io_pad - c))
-
-    def dense(a, w, row):
-        return a.to(dt).float() @ w.float() + vecs[row][None]
-
-    def gn(a, row):
-        return _gn_silu(a, packed.ind, packed.bcast_scaled[row], packed.gn_bias[row][None])
-
-    h = gn(dense(h, packed.w_pre, 0), 0)
+    h = gn(dense(h, packed.w_pre, vecs[0]), packed, 0)
     for blk in range(2):
         l1, l2 = 1 + 2 * blk, 2 + 2 * blk
-        h1 = gn(dense(h, packed.w_b[2 * blk], l1), l1)
-        h2 = gn(dense(h1, packed.w_b[2 * blk + 1], l2), l2)
+        h1 = gn(dense(h, packed.w_b[2 * blk], vecs[l1]), packed, l1)
+        h2 = gn(dense(h1, packed.w_b[2 * blk + 1], vecs[l2]), packed, l2)
         h = h + h2
-    out = h.to(dt).float() @ packed.w_post.float() + packed.bias_post[None]
+    out = dense(h, packed.w_post, packed.bias_post)
     return out[:, :c]
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the score kernel is built with the CUDA "
-                       "toolkit at first use (set CUDA_HOME)")
+_lib = None
 
 
-class _Library(NamedTuple):
-    lib: ctypes.CDLL
-    path: str
-    build_seconds: float  # 0.0 when the library was already built
-    ptxas: str  # nvcc -Xptxas -v resource lines of this build
+def load_library() -> ctypes.CDLL:
+    """The kernel's library, built at first use. Raises when CUDA or nvcc is
+    missing; there is no fallback."""
+    global _lib
+    if _lib is None:
+        lib = build.load("score_mlp")
+        fn = lib.zedo_score_mlp_forward
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 15
+        fn.restype = ctypes.c_int
+        for f in (lib.zedo_score_mlp_min_column_tile, lib.zedo_score_mlp_max_column_tile):
+            f.argtypes = []
+            f.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
-_library = None
-
-
-def load_library() -> _Library:
-    """Build (once per source hash) and load the kernel library. Raises
-    when CUDA or nvcc is missing; there is no fallback."""
-    global _library
-    if _library is not None:
-        return _library
-    if not torch.cuda.is_available():
-        raise RuntimeError("the fused score kernel needs a CUDA device")
-    digest = hashlib.sha256()
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    so = out_dir / "libzedo_score_mlp.so"
-    build_seconds, ptxas = 0.0, ""
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libzedo_score_mlp.{os.getpid()}.so"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp)] + [str(_CSRC / n) for n in _SOURCES]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        ptxas = "\n".join(line for line in proc.stderr.splitlines()
-                          if "registers" in line or "spill" in line)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.zedo_score_mlp_forward
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 15)
-    fn.restype = ctypes.c_int
-    lib.zedo_score_mlp_column_tile.argtypes = []
-    lib.zedo_score_mlp_column_tile.restype = ctypes.c_int
-    if lib.zedo_score_mlp_column_tile() != LANE:
-        raise RuntimeError("the kernel's column tile differs from LANE; "
-                           "_kernel_takes would admit widths it cannot run")
-    _library = _Library(lib, str(so), build_seconds, ptxas)
-    return _library
-
-
-def _kernel_takes(hidden: int, group_size: int) -> bool:
-    """Hidden width a multiple of the kernel's 128-column tile, GroupNorm
-    groups of a power of two of at most 32 channels (a group never leaves a
-    warp)."""
-    return hidden % LANE == 0 and group_size <= 32 and group_size & (group_size - 1) == 0
+def column_tile(hidden: int, group: int) -> int:
+    """Column tile of the kernel's hidden layers: a multiple of 16 and of
+    the GroupNorm group size that divides `hidden`, the largest such up to
+    128 (128 for groups of 4, 8, 16, 32, 64; 96 for 12 and 24; 80 for 20)
+    or, for wider groups, the least common multiple itself (144 for 36)."""
+    lcm = math.lcm(group, 16)
+    tile = lcm * max(1, LANE // lcm)
+    return tile if hidden % tile == 0 else lcm
 
 
 def kernel_supports(cfg) -> bool:
-    """Architectures the CUDA kernel takes: 2 residual blocks and a width
-    `_kernel_takes`."""
-    return cfg.n_blocks == 2 and _kernel_takes(cfg.hidden_dim,
-                                               cfg.hidden_dim // cfg.group_norm_groups)
+    """Architectures the CUDA kernel takes, JAX's Pallas contract: 2
+    residual blocks and a lane-aligned hidden width. A width whose column
+    tile the kernel was not built for raises in `fused_score_forward`."""
+    return cfg.n_blocks == 2 and cfg.hidden_dim % LANE == 0
 
 
 def _check(name, t, dtype, shape, device):
@@ -256,6 +215,35 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
+
+
+def gn_bf16(packed: PackedScoreWeights) -> bool:
+    """GroupNorm statistics mode of the packed weights, as the kernels take
+    it: True for bf16, False for f32; anything else raises."""
+    if packed.ind.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernels reduce GroupNorm statistics in bf16 or f32, "
+                         f"not {packed.ind.dtype}")
+    return packed.ind.dtype == torch.bfloat16
+
+
+def check_operands(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch.Tensor):
+    """Device, dtype, shape and contiguity of a kernel call's operands."""
+    dev = x.device
+    io_pad, h = packed.w_pre.shape
+    if x.dim() != 2 or not 0 < x.shape[1] <= io_pad:
+        raise ValueError(f"x: want [B, C <= {io_pad}], got {tuple(x.shape)}")
+    if len(packed.w_b) != 4:
+        raise ValueError("the kernels specialize the shipped 2-block config")
+    bf = torch.bfloat16
+    _check("x", x, torch.float32, tuple(x.shape), dev)
+    _check("w_pre", packed.w_pre, bf, (io_pad, h), dev)
+    for i, w in enumerate(packed.w_b):
+        _check(f"w_b[{i}]", w, bf, (h, h), dev)
+    _check("w_post", packed.w_post, bf, (h, io_pad), dev)
+    _check("vecs", vecs, torch.float32, (5, h), dev)
+    _check("gn_scale", packed.gn_scale, torch.float32, (5, h), dev)
+    _check("gn_bias", packed.gn_bias, torch.float32, (5, h), dev)
+    _check("bias_post", packed.bias_post, torch.float32, (io_pad,), dev)
 
 
 def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
@@ -269,37 +257,26 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
     if x.device.type != "cuda":
         raise ValueError(f"fused_score_forward: unsupported device {x.device}")
     lib = load_library()
-    dev = x.device
+    check_operands(x, packed, vecs)
+    mode = gn_bf16(packed)
     io_pad, h = packed.w_pre.shape
-    if x.dim() != 2 or not 0 < x.shape[1] <= io_pad:
-        raise ValueError(f"x: want [B, C <= {io_pad}], got {tuple(x.shape)}")
+    tile = column_tile(h, packed.group_size)
+    lo, hi = lib.zedo_score_mlp_min_column_tile(), lib.zedo_score_mlp_max_column_tile()
+    if h % LANE or not lo <= tile <= hi:
+        raise ValueError(
+            f"hidden {h} with GroupNorm groups of {packed.group_size} needs a column tile "
+            f"of {tile}; the kernel's column tiles span {lo} to {hi} columns (its "
+            f"accumulators and staged epilogue tile must fit registers and shared memory)")
     b, c = x.shape
-    if not _kernel_takes(h, packed.group_size) or len(packed.w_b) != 4:
-        raise ValueError(f"kernel does not take hidden {h} with GroupNorm groups of "
-                         f"{packed.group_size}")
-    if packed.ind.dtype != torch.float32:
-        raise ValueError("the CUDA kernel reduces GroupNorm statistics in f32: pack "
-                         "with gn_dtype=torch.float32")
-    bf = torch.bfloat16
-    _check("x", x, torch.float32, (b, c), dev)
-    _check("w_pre", packed.w_pre, bf, (io_pad, h), dev)
-    for i, w in enumerate(packed.w_b):
-        _check(f"w_b[{i}]", w, bf, (h, h), dev)
-    _check("w_post", packed.w_post, bf, (h, io_pad), dev)
-    _check("vecs", vecs, torch.float32, (5, h), dev)
-    _check("gn_scale", packed.gn_scale, torch.float32, (5, h), dev)
-    _check("gn_bias", packed.gn_bias, torch.float32, (5, h), dev)
-    _check("bias_post", packed.bias_post, torch.float32, (io_pad,), dev)
-
-    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    resid = torch.empty((b, h), dtype=torch.float32, device=dev)
-    act_h = torch.empty((b, h), dtype=bf, device=dev)
-    act_h1 = torch.empty((b, h), dtype=bf, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lib.zedo_score_mlp_forward(
-        x.data_ptr(), b, c, io_pad, h, packed.group_size,
+    resid = torch.empty((b, h), dtype=torch.float32, device=x.device)
+    act_h = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
+    act_h1 = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.zedo_score_mlp_forward(
+        x.data_ptr(), b, c, io_pad, h, packed.group_size, tile, int(mode),
         packed.w_pre.data_ptr(), *(w.data_ptr() for w in packed.w_b),
         packed.w_post.data_ptr(), vecs.data_ptr(), packed.gn_scale.data_ptr(),
         packed.gn_bias.data_ptr(), packed.bias_post.data_ptr(), out.data_ptr(),
@@ -307,6 +284,7 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
     if err != 0:
         raise RuntimeError(f"score kernel launch failed: CUDA error {err}")
     launch_counts["fused_score_forward"] += 1
+    gn_mode_launches["bf16" if mode else "f32"] += 1
     return out
 
 

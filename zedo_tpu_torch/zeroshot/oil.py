@@ -58,8 +58,9 @@ class OILConfig:
     # evaluate the score network every k-th step and reuse its output in
     # between (opt-in; 1 = exact reference dynamics)
     score_reuse: int = 1
-    # GroupNorm statistics in f32 with bf16 weights (the CUDA kernel always
-    # reduces in f32; this selects it for the plain version on the CPU)
+    # GroupNorm statistics in f32 with bf16 weights (exact-GN mode); the
+    # default reduces them in the weight dtype, as the TPU kernel does, in
+    # the CUDA kernel and its plain version alike
     gn_fp32: bool = False
     # per-step reprojection trace: not ported yet
     track_reproj: bool = False
@@ -169,9 +170,8 @@ def _run_oil_fast(params, model_cfg, sde: SubVPSDE, geo: Geometry, x0, t0,
         use_kernel = _kernel_eligible(params, model_cfg)
 
     if use_kernel:
-        gn_f32 = cfg.gn_fp32 or x0.device.type == "cuda"
         packed = sk.pack_weights(params, model_cfg, dtype=model_dtype,
-                                 gn_dtype=torch.float32 if gn_f32 else None)
+                                 gn_dtype=torch.float32 if cfg.gn_fp32 else None)
         # [steps, 5, H] per-step layer vectors, precomputed outside the loop
         vecs = sk.step_vectors(packed, temb_table).contiguous().unbind(0)
 

@@ -8,6 +8,7 @@ IPO keeps each hypothesis's own mean loss (zeroshot/ipo.py).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -33,8 +34,21 @@ class SolveResult(NamedTuple):
     translations: torch.Tensor  # [N, S, 1, 3]
 
 
+@contextlib.contextmanager
+def _phase(stopwatch, name: str, device: torch.device):
+    """A stopwatch phase that ends when the device has finished its work."""
+    if stopwatch is None:
+        yield
+        return
+    with stopwatch.phase(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
 def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
-                  cluster_poses, cond2d, conf, k, model_apply=None) -> OILResult:
+                  cluster_poses, cond2d, conf, k, model_apply=None,
+                  stopwatch=None) -> OILResult:
     """All hypotheses in one batch of S*N rows, hypothesis-major."""
     cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype,
                                     device=cond2d.device)
@@ -46,10 +60,12 @@ def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
     k = k.repeat(s, 1, 1)
     conf = None if conf is None else conf.repeat(s, 1)
 
-    ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s)
-    x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
-    return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
-                   cond2d, k, conf, cfg.oil, model_apply=model_apply)
+    with _phase(stopwatch, "ipo", cond2d.device):
+        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s)
+        x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
+    with _phase(stopwatch, "oil", cond2d.device):
+        return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
+                       cond2d, k, conf, cfg.oil, model_apply=model_apply)
 
 
 def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
@@ -66,12 +82,15 @@ def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
 def solve(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
           sampler: PCSampler, cfg: ZeDOConfig, cluster_poses: torch.Tensor,
           cond2d: torch.Tensor, conf: Optional[torch.Tensor], k: torch.Tensor,
-          model_apply=None) -> SolveResult:
+          model_apply=None, stopwatch=None) -> SolveResult:
     """All S hypotheses [S, j, 3] over cond2d [N, j, >=2], k [N, 3, 3];
-    returns [N, S, j, 3] poses and [N, S, 1, 3] translations."""
+    returns [N, S, j, 3] poses and [N, S, 1, 3] translations.
+
+    stopwatch: an optional utils.profiling.Stopwatch that times IPO and OIL
+    as its phases "ipo" and "oil", each ending in a device synchronize."""
     s, n = len(cluster_poses), cond2d.shape[0]
     res = _solve_folded(params, model_cfg, sde, sampler, cfg, cluster_poses,
-                        cond2d, conf, k, model_apply)
+                        cond2d, conf, k, model_apply, stopwatch)
     return SolveResult(
         poses=res.pose.reshape(s, n, *res.pose.shape[1:]).transpose(0, 1),
         translations=res.translation.reshape(s, n, 1, 3).transpose(0, 1),
