@@ -6,22 +6,28 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: both kernel libraries from zedo_tpu_torch/csrc, one nvcc each,
-     started together;
-  3. kernel #1 (fused_score_forward) against its plain version at the
-     published width (hidden 1024, embed 512, bf16 weights) in both
-     GroupNorm statistics modes, on 44,300 rows (the H36M 886 x 50 solve)
-     and on a ragged row count, with kernel, plain-version and bf16
-     torch.matmul-chain times and the roofline bound; and at hidden 384,
-     768 and 2048 (GroupNorm groups of 12, 24 and 64 channels) in both
-     modes;
+     started together; registers and spills of kernel #1's two kernels, its
+     wgmma kernel's resident blocks per SM, and the HGMMA (wgmma) and
+     UTMALDG (TMA load) opcodes in its SASS;
+  3. kernel #1 (fused_score_forward): its wgmma product alone against
+     torch.matmul; then against its plain version at the published width
+     (hidden 1024, embed 512, bf16 weights) in both GroupNorm statistics
+     modes, on 44,300 rows (the H36M 886 x 50 solve), a ragged row count, 1
+     and 129 rows, on its wgmma path and with the wmma path forced; at
+     hidden 256 and 2048 (wgmma path, groups of 8 and 64 channels) and at
+     384 and 768 (wmma path, groups of 12 and 24) in both modes; the two
+     paths timed in turns (wmma, wgmma, wgmma, wmma), with plain-version and
+     bf16 torch.matmul-chain times, the wrapper's host time per forward, the
+     roofline bound and the device-traffic floor of one launch per layer;
   4. kernel #2 (fused_score_forward_split) against its plain version and
      against kernel #1 at 44,300 and 1,001 rows in both modes, with its
      times beside the same yardsticks;
   5. the main path: ZeDOEstimator.predict at the published width with random
      seeded weights and the full 500 IPO / 1000 OIL schedule on 886 poses x
      50 hypotheses, a few requests, with the kernel's launches checked
-     against the OIL steps and its GroupNorm mode against the default
-     (bf16, JAX's default); IPO alone; a profiled request;
+     against the OIL steps, its GroupNorm mode against the default (bf16,
+     JAX's default) and its path against wgmma; IPO alone; a profiled
+     request;
   6. accuracy on the committed trained fixture (hidden 256): fp32, bf16
      (kernel #1, GroupNorm bf16) and bf16 with gn_fp32, best-hypothesis
      MPJPE against the JAX package's value for the same scenes, schedule
@@ -83,7 +89,11 @@ PEAK_BYTES = 3.35e12
 HEADLINE_N, HEADLINE_S = 886, 50
 N_REQUESTS = 3
 KERNEL_TOL = 2e-2  # max |kernel - plain|: same bf16 operands, f32 sums in another order
+# max |wgmma product - torch.matmul| / max |product|: exact bf16 x bf16
+# products, f32 sums in another order
+PRODUCT_RTOL = 1e-5
 WIDTH_ROWS = 4096  # rows of the width checks of kernel #1
+WGMMA_WIDTHS, WMMA_WIDTHS = (256, 2048), (384, 768)
 BENCH_KERNEL_ITERS = 20
 
 
@@ -154,49 +164,157 @@ def bound(x, packed, vecs, rows):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
+def layer_traffic_ms(sk, x, packed, vecs, rows):
+    """Least time of the bytes a one-launch-per-layer design moves at the HBM
+    rate: the bound's bytes, the bf16 copy of x written and read, and between
+    layers the bf16 activation and the f32 residual. Per row and hidden
+    channel: layer 0 writes 4 + 2 bytes, each plain GroupNorm layer reads 2
+    and writes 2, each residual layer reads 2 + 4 and writes 4 + 2, the post
+    layer reads 2."""
+    io = x.shape[1]
+    h = packed.w_pre.shape[1]
+    between = rows * h * (6 + 2 * 4 + 2 * 12 + 2)
+    ends = (rows * io * 8 + 2 * rows * sk.padded_input_columns(io) * 2
+            + sum(t.numel() * t.element_size() for t in
+                  (packed.w_pre, *packed.w_b, packed.w_post, vecs, packed.gn_scale,
+                   packed.gn_bias, packed.bias_post)))
+    return (between + ends) / PEAK_BYTES * 1e3
+
+
+def host_us(torch, fn, reps=40):
+    """Host time of one call of fn (which only enqueues), in microseconds:
+    the stream is drained before, and the calls are few enough that the
+    launch queue never fills and the host never waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def phase_build(torch, build, sk):
+    """Build both libraries; kernel #1's resources, occupancy and SASS."""
+    libs = build.build()
+    for name, lib in libs.items():
+        log(f"build {name}: {lib.build_seconds:.1f} s -> {lib.path}")
+        res = build.resources(lib.ptxas)
+        if not res:
+            log("ptxas: (library was already built)")
+        for label, pick in (("wgmma_layer", lambda k: "wgmma_layer" in k),
+                            ("other kernels", lambda k: "wgmma_layer" not in k)):
+            regs = [v for k, v in res.items() if pick(k)]
+            if regs:
+                log(f"  {name} {label}: {len(regs)} kernels, registers "
+                    f"{min(r for r, _ in regs)}-{max(r for r, _ in regs)}, spill bytes "
+                    f"{sum(sp for _, sp in regs)}")
+    blocks = sk.load_library().zedo_score_mlp_wgmma_blocks_per_sm()
+    log(f"wgmma_layer: {blocks} resident blocks per SM")
+    if blocks < 1:
+        fail("the wgmma kernel does not fit an SM")
+    dump = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                           libs["score_mlp"].path], capture_output=True, text=True, timeout=300)
+    if dump.returncode != 0:
+        fail(f"cuobjdump failed: {dump.stderr[-2000:]}")
+    counts = {op: dump.stdout.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    log(f"SASS of libzedo_score_mlp.so: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
+        f"UTMALDG (TMA load), {counts['HMMA']} HMMA (mma.sync, the wmma kernel, HGMMA included)")
+    for op in ("HGMMA", "UTMALDG"):
+        first = next((line for line in dump.stdout.splitlines() if op in line), None)
+        if first:
+            log(f"  e.g. {' '.join(first.split())[:150]}")
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        fail("the wgmma kernel's SASS holds no HGMMA or no UTMALDG")
+    return blocks, max(lib.build_seconds for lib in libs.values())
+
+
 def phase_kernel(torch, sk, tsm, library_forward, dev):
     """Kernel #1 against its plain version; returns its JSON entry (without
     launches) and the published-width inputs for kernel #2."""
-    weights = packed_weights(torch, sk, tsm, dev)
     gen = torch.Generator().manual_seed(1)
+    # the wgmma product alone: TMA boxes, swizzle and descriptors
+    for m, k, n in ((64, 64, 128), (300, 1024, 256)):
+        a = torch.randn(m, k, generator=gen).to(dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen).to(dev).to(torch.bfloat16)
+        want = a.float() @ w.float()
+        check(torch, f"wgmma product {m}x{k}x{n} vs torch.matmul", sk.wgmma_product(a, w), want,
+              m, tol=PRODUCT_RTOL * want.abs().max().item())
+
+    weights = packed_weights(torch, sk, tsm, dev)
     rows = HEADLINE_N * HEADLINE_S
-    xs = {r: torch.randn(r, 51, generator=gen).to(dev) for r in (rows, 1001)}
-    errs, ms = [], {}
+    xs = {r: torch.randn(r, 51, generator=gen).to(dev) for r in (rows, 1001, 1, 129)}
+    errs, errs_wmma, ms = [], [], {}
     for gn, (packed, vecs) in weights.items():
         for r, x in xs.items():
-            errs.append(check(torch, f"kernel #1 gn={gn} vs plain",
-                              sk.fused_score_forward(x, packed, vecs),
-                              sk.fused_score_forward_reference(x, packed, vecs), r))
-        ms[gn] = cuda_ms(torch, lambda: sk.fused_score_forward(xs[rows], packed, vecs), 20, 3)
+            want = sk.fused_score_forward_reference(x, packed, vecs)
+            sk.reset_launch_counts()
+            errs.append(check(torch, f"kernel #1 wgmma gn={gn} vs plain",
+                              sk.fused_score_forward(x, packed, vecs), want, r))
+            errs_wmma.append(check(torch, f"kernel #1 wmma (forced) gn={gn} vs plain",
+                                   sk.fused_score_forward(x, packed, vecs, _force_wmma=True),
+                                   want, r))
+            if sk.path_launches != {"wgmma": 1, "wmma": 1}:
+                fail(f"hidden 1024: paths {sk.path_launches}, want one launch of each")
     packed, vecs = weights["bf16"]
     x = xs[rows]
+
+    def wgmma():
+        return sk.fused_score_forward(x, packed, vecs)
+
+    def wmma():
+        return sk.fused_score_forward(x, packed, vecs, _force_wmma=True)
+
+    # the two paths in turns on one card: wmma, wgmma, wgmma, wmma
+    turns = [(name, cuda_ms(torch, fn, 20, 3)) for name, fn in
+             (("wmma", wmma), ("wgmma", wgmma), ("wgmma", wgmma), ("wmma", wmma))]
+    log("kernel #1 in turns, ms: " + ", ".join(f"{name} {t:.4f}" for name, t in turns))
+    ms["bf16"] = (turns[1][1] + turns[2][1]) / 2
+    ms_wmma = (turns[0][1] + turns[3][1]) / 2
+    pf, vf = weights["f32"]
+    ms["f32"] = cuda_ms(torch, lambda: sk.fused_score_forward(x, pf, vf), 20, 3)
+    host = host_us(torch, wgmma)
     plain_ms = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x, packed, vecs), 3, 1)
     want = sk.fused_score_forward_reference(x, packed, vecs)
     check(torch, "library chain vs plain (yardstick)", library_forward(x, packed, vecs), want,
           rows, tol=math.inf)
     lib_ms = cuda_ms(torch, lambda: library_forward(x, packed, vecs), 10, 2)
     bound_ms, bound_by, flops = bound(x, packed, vecs, rows)
+    traffic_ms = layer_traffic_ms(sk, x, packed, vecs, rows)
     for gn in ms:
-        log(f"fused_score_forward gn={gn} {rows}x1024: kernel {ms[gn]:.4f} ms "
+        log(f"fused_score_forward (wgmma) gn={gn} {rows}x1024: kernel {ms[gn]:.4f} ms "
             f"({flops / ms[gn] / 1e9:.1f} TFLOP/s, {bound_ms / ms[gn]:.3f} of the {bound_by} "
-            f"bound {bound_ms:.4f} ms)")
-    log(f"plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms")
+            f"bound {bound_ms:.4f} ms, {traffic_ms / ms[gn]:.3f} of the per-layer traffic "
+            f"floor {traffic_ms:.4f} ms)")
+    log(f"wmma path {ms_wmma:.4f} ms ({ms_wmma / ms['bf16']:.2f}x the wgmma path), plain version "
+        f"{plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms, wrapper host time "
+        f"{host:.1f} us per forward")
 
-    # every width JAX runs through Pallas: groups that are no power of two
-    # and groups wider than a warp reduce through shared memory
-    for hidden in (384, 768, 2048):
+    # the other widths JAX runs through Pallas, each on its path
+    for hidden in sorted(WGMMA_WIDTHS + WMMA_WIDTHS):
+        path = sk.kernel_path(hidden, hidden // 32)
+        if path != ("wgmma" if hidden in WGMMA_WIDTHS else "wmma"):
+            fail(f"hidden {hidden}: kernel_path says {path}")
         for gn, (p, v) in packed_weights(torch, sk, tsm, dev, hidden=hidden).items():
             xw = torch.randn(WIDTH_ROWS, 51, generator=gen).to(dev)
-            errs.append(check(torch, f"kernel #1 hidden {hidden} (groups of {hidden // 32}) "
-                              f"gn={gn} vs plain", sk.fused_score_forward(xw, p, v),
-                              sk.fused_score_forward_reference(xw, p, v), WIDTH_ROWS))
+            sk.reset_launch_counts()
+            err = check(torch, f"kernel #1 {path} hidden {hidden} (groups of {hidden // 32}) "
+                        f"gn={gn} vs plain", sk.fused_score_forward(xw, p, v),
+                        sk.fused_score_forward_reference(xw, p, v), WIDTH_ROWS)
+            (errs if path == "wgmma" else errs_wmma).append(err)
+            if sk.path_launches[path] != 1:
+                fail(f"hidden {hidden}: paths {sk.path_launches}, want the {path} kernel")
     entry = {
         "name": "fused_score_forward", "route": "cuda",
         "source": "zedo_tpu_torch/csrc/score_mlp.cu",
         "replaces": "zedo_tpu/ops/pallas/score_kernel.py:214",
         "launches": None, "max_abs_err": max(errs), "ms": ms["bf16"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "ms_gn_f32": ms["f32"], "rows": rows, "hidden": 1024,
+        "ms_gn_f32": ms["f32"], "rows": rows, "hidden": 1024, "path": "wgmma",
+        "layer_launches_per_forward": 7, "ms_wmma_path": ms_wmma,
+        "max_abs_err_wmma_path": max(errs_wmma), "layer_traffic_floor_ms": traffic_ms,
+        "host_us_per_forward": host,
         "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"],
     }
     return entry, weights, x
@@ -274,8 +392,10 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
     if by_mode["bf16"] != launches:
         fail(f"the default OILConfig launched the kernel in GroupNorm modes {by_mode}, "
              f"want all bf16 (JAX's default)")
+    if sk.path_launches != {"wgmma": launches, "wmma": 0}:
+        fail(f"the published width ran the kernel's paths {sk.path_launches}, want all wgmma")
     log(f"main path: {launches} kernel launches in {N_REQUESTS} requests "
-        f"({per_request} per request), GroupNorm modes {by_mode}")
+        f"({per_request} per request), GroupNorm modes {by_mode}, paths {sk.path_launches}")
 
     # where a request's time goes: IPO alone on the same folded rows
     from zedo_tpu_torch.zeroshot.ipo import run_ipo
@@ -300,13 +420,13 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
         torch.cuda.synchronize()
     # device-side events only: the CPU ops that launched them carry the
     # same time again
-    by_kernel = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+    by_kernel = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    busy_s = sum(t for t, _ in by_kernel) / 1e6
+    busy_s = sum(t for t, _, _ in by_kernel) / 1e6
     log(f"profiled request: device busy {busy_s:.3f} s = {busy_s / np.mean(walls):.3f} of "
         f"the unprofiled mean wall-clock; top kernels by device time:")
-    for t, name in by_kernel[:6]:
-        log(f"  {t / 1e3:10.1f} ms  {name[:90]}")
+    for t, count, name in by_kernel[:8]:
+        log(f"  {t / 1e3:10.1f} ms = {count} x {t / count:8.1f} us  {name[:90]}")
     return launches, walls, ipo_s, busy_s
 
 
@@ -359,10 +479,14 @@ def phase_tooling(torch, sk, split, bench, bench_kernel, validate_dtype):
     res, counts = counted(sk, split, "tools.bench_kernel --split", lambda: bench_kernel.main(
         ["--split", "--iters", str(iters)]))
     # each variant: one warm-up step and `iters` timed ones, per GroupNorm
-    # mode; the split comparison adds one launch of each
-    want = 2 * (iters + 1) + 1
-    if counts != {"fused_score_forward": want, "fused_score_forward_split": want}:
-        fail(f"bench_kernel --split launches {counts}, want {want} of each kernel")
+    # mode; kernel #1 on both of its paths; the split comparison adds one
+    # launch of each kernel
+    want = {"fused_score_forward": 4 * (iters + 1) + 1,
+            "fused_score_forward_split": 2 * (iters + 1) + 1}
+    if counts != want:
+        fail(f"bench_kernel --split launches {counts}, want {want}")
+    if sk.path_launches != {"wgmma": 2 * (iters + 1) + 1, "wmma": 2 * (iters + 1)}:
+        fail(f"bench_kernel --split ran kernel #1's paths {sk.path_launches}")
     if not res["split_max_abs_diff"] <= KERNEL_TOL:
         fail(f"bench_kernel --split: split vs kernel {res['split_max_abs_diff']}")
     split_launches = counts["fused_score_forward_split"]
@@ -426,9 +550,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    for name, lib in build.build().items():
-        log(f"build {name}: {lib.build_seconds:.1f} s -> {lib.path}")
-        log(lib.ptxas or "ptxas: (library was already built)")
+    blocks_per_sm, build_s = phase_build(torch, build, sk)
 
     t0 = time.perf_counter()
     entry, weights, x = phase_kernel(torch, sk, tsm, bench_kernel.library_forward, dev)
@@ -455,8 +577,10 @@ def main() -> int:
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
 
+    entry["resident_blocks_per_sm"] = blocks_per_sm
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
+                      "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

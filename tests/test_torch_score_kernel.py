@@ -142,3 +142,110 @@ def test_kernel_supports_widths(hidden, n_blocks, monkeypatch):
         want = {4: 128, 8: 128, 16: 128, 32: 128, 64: 128, 12: 96, 24: 96, 20: 80,
                 28: 112, 36: 144}
         assert tile == want.get(group, tile)
+
+
+@pytest.mark.parametrize("hidden,want", [(256, "wgmma"), (384, "wmma"), (768, "wmma"),
+                                         (1024, "wgmma"), (2048, "wgmma"), (128, "wgmma"),
+                                         (512, "wgmma"), (640, "wmma"), (1152, "wmma")])
+def test_kernel_path_selection(hidden, want):
+    """Which kernel of the library a width takes: the wgmma kernel where the
+    column tile is 128 with a power-of-two group of 4 to 64 channels, the
+    wmma kernel elsewhere (the rule of the C entry point, mirrored)."""
+    group = hidden // tsm.ScoreMLPConfig(hidden_dim=hidden).group_norm_groups
+    assert tsk.kernel_path(hidden, group) == want
+    tile = tsk.column_tile(hidden, group)
+    pow2 = group & (group - 1) == 0
+    assert (want == "wgmma") == (tile == 128 and pow2 and 4 <= group <= 64)
+
+
+def test_kernel_path_needs_a_128_column_tile():
+    # a power-of-two group alone is not enough: the width must split into
+    # 128-column tiles
+    assert tsk.kernel_path(1024, 128) == "wmma"
+    assert tsk.kernel_path(192, 8) == "wmma"
+    assert tsk.padded_input_columns(51) == 64
+    assert tsk.padded_input_columns(64) == 64
+    assert tsk.padded_input_columns(65) == 128
+
+
+def _round(t, bf16):
+    return t.to(torch.bfloat16).float() if bf16 else t
+
+
+def _register_epilogue(v, scale, bias, group, bf16):
+    """GroupNorm + SiLU of one 128-column tile the way the wgmma kernel's
+    epilogue reduces it. In the wgmma accumulator layout a thread holds, for
+    j = 0..15, the column pair 8j + 2q, 8j + 2q + 1 (q its lane within a quad):
+    it sums its own squares over the j of a group in order, then the quad
+    adds across lanes 1 and 2 apart (one lane apart only for groups of 4,
+    which are half a quad). The rounding points are the kernel's: in the
+    bf16 mode each square, 1 / group, the rsqrt and the scale."""
+    rows = v.shape[0]
+    lanes = v.view(rows, 16, 4, 2)  # [row, j, q, pair element]
+    sq = _round(lanes * lanes, bf16)
+    pair = sq[..., 0] + sq[..., 1]  # [row, j, q]
+    jpg = max(group // 8, 1)
+    ss = torch.zeros(rows, 16 // jpg, 4)
+    for jj in range(jpg):
+        ss = ss + pair.view(rows, 16 // jpg, jpg, 4)[:, :, jj]
+    ss = ss + ss[..., [1, 0, 3, 2]]
+    if group >= 8:
+        ss = ss + ss[..., [2, 3, 0, 1]]
+    if bf16:
+        rstd = _round(torch.rsqrt(ss * _round(torch.tensor(1.0 / group), True) + tsk.GN_EPS), True)
+    else:
+        rstd = torch.rsqrt(ss / group + tsk.GN_EPS)
+    rstd = rstd.repeat_interleave(jpg, dim=1)[..., None].expand(rows, 16, 4, 2).reshape(rows, 128)
+    xn = v * (rstd * _round(scale, bf16)) + bias
+    return xn * (0.5 * torch.tanh(0.5 * xn) + 0.5)
+
+
+@pytest.mark.parametrize("group", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("gn", ["bf16", "f32"])
+def test_register_epilogue_reduction_matches_gn_silu(gn, group):
+    """The reduction order of the wgmma kernel's register epilogue (per-thread
+    partial sums over j, then the quad) against the plain `_gn_silu`, in both
+    GroupNorm modes, on one 128-column tile."""
+    bf16 = gn == "bf16"
+    gn_dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.RandomState(group)
+    v = torch.from_numpy(rng.randn(96, 128).astype(np.float32) * 1.7)
+    scale = torch.from_numpy(1.0 + 0.2 * rng.randn(128).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.randn(128).astype(np.float32))
+    # the packed operands of pack_weights for a 128-channel width
+    ind = torch.zeros(128, tsk.LANE)
+    bcast = torch.zeros(tsk.LANE, 128)
+    for g in range(128 // group):
+        ind[g * group:(g + 1) * group, g] = 1.0 / group
+        bcast[g, g * group:(g + 1) * group] = 1.0
+    want = tsk._gn_silu(v, ind.to(gn_dtype), (bcast * scale[None]).to(gn_dtype), bias[None])
+    got = _register_epilogue(v, scale, bias, group, bf16)
+    err = (got - want).abs() / (want.abs() + 1e-3)
+    if bf16:
+        # the f32 sums differ in their last bit, which can move the
+        # bf16-rounded rsqrt of a group by one step (2^-8): rare, and bounded
+        assert (err < 1e-5).float().mean() > 0.97, (err < 1e-5).float().mean()
+        assert err.max() < 1e-2, err.max()
+    else:
+        assert err.max() < 1e-5, err.max()  # f32 sum order only
+
+
+def test_epilogue_store_exchange_writes_each_column_once():
+    """The bf16 activation store of the wgmma epilogue: lanes one apart swap
+    the pair of j against the pair of j + 1, so each lane stores four
+    neighbouring columns and a quad one whole 32-byte sector."""
+    written = []
+    for j in range(0, 16, 2):
+        sector = []
+        for q in range(4):
+            odd = q & 1
+            own = {jj: [8 * jj + 2 * q, 8 * jj + 2 * q + 1] for jj in (j, j + 1)}
+            other = {jj: [8 * jj + 2 * (q ^ 1), 8 * jj + 2 * (q ^ 1) + 1] for jj in (j, j + 1)}
+            # an odd lane sends its pair of j and keeps j + 1; an even lane the reverse
+            cols = other[j + 1] + own[j + 1] if odd else own[j] + other[j]
+            start = 8 * (j + 1) + 2 * q - 2 if odd else 8 * j + 2 * q
+            assert cols == list(range(start, start + 4)) and start % 4 == 0
+            sector += cols
+        assert sorted(sector) == list(range(8 * j, 8 * j + 16))  # 16 bf16 = 32 bytes
+        written += sector
+    assert sorted(written) == list(range(128))

@@ -56,7 +56,8 @@ def test_chip_smoke_trained_reference():
 def test_bench_kernel_prints_variants_and_best(capsys):
     res = bench_kernel.main(["--rows", "40", "--iters", "2", "--split", "--device", "cpu"])
     out = capsys.readouterr().out
-    for name in ("kernel gn=bf16", "kernel gn=f32", "split tile=32 gn=bf16",
+    for name in ("kernel gn=bf16", "kernel gn=f32", "kernel wmma gn=bf16",
+                 "kernel wmma gn=f32", "split tile=32 gn=bf16",
                  "split tile=32 gn=f32", "library chain bf16", "unfused bf16"):
         assert name in res and res[name] > 0 and name in out
     # the plain versions of the two kernels compute one function

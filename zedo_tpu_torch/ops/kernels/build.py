@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each source in `zedo_tpu_torch/csrc/` is compiled with `nvcc` for sm_90a
-into a shared library with a plain C interface, at first use, under
-`build/zedo_tpu_torch/<source hash>/` beside the package, and loaded with
-ctypes. `build()` starts one nvcc for each library that is not built yet,
-all together, and waits for them. Without CUDA or nvcc it raises: there is
-no fallback.
+Each `.cu` source in `zedo_tpu_torch/csrc/` is compiled with `nvcc` for
+sm_90a into a shared library with a plain C interface, at first use, under
+`build/zedo_tpu_torch/<hash of csrc/>/` beside the package, and loaded with
+ctypes. The headers the sources share (`hopper.cuh`) are part of the hash.
+`build()` starts one nvcc for each library that is not built yet, all
+together, and waits for them. Without CUDA or nvcc it raises: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class Library(NamedTuple):
     lib: ctypes.CDLL
     path: str
     build_seconds: float  # 0.0 when the library was already built
-    ptxas: str  # nvcc -Xptxas -v resource lines of this build
+    ptxas: str  # nvcc -Xptxas -v lines of this build: entry names, registers, spills
 
 
 _loaded: dict = {}  # library name -> Library, once per process
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes()).hexdigest()[:16]
-    return BUILD_ROOT / digest / f"libzedo_{name}.so"
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"libzedo_{name}.so"
 
 
 def build(names=tuple(SOURCES)) -> dict:
@@ -67,7 +70,7 @@ def build(names=tuple(SOURCES)) -> dict:
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.so")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+               str(CSRC / SOURCES[name]), "-ldl"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), tmp, so)
     built = {}
@@ -77,13 +80,30 @@ def build(names=tuple(SOURCES)) -> dict:
             raise RuntimeError(f"nvcc failed on {SOURCES[name]} ({proc.returncode}):\n{stderr}")
         os.replace(tmp, so)
         built[name] = "\n".join(line for line in stderr.splitlines()
-                                if "registers" in line or "spill" in line)
+                                if "Compiling entry" in line or "registers" in line
+                                or "spill" in line)
     seconds = time.perf_counter() - t0
     for name in todo:
         so = _so_path(name)
         _loaded[name] = Library(ctypes.CDLL(str(so)), str(so),
                                 seconds if name in built else 0.0, built.get(name, ""))
     return {n: _loaded[n] for n in names}
+
+
+def resources(ptxas: str) -> dict:
+    """{demangling-free kernel name: (registers, spill bytes)} from the
+    `ptxas` lines of a Library."""
+    out, name, spill = {}, None, 0
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif "spill" in line:
+            words = line.replace(",", " ").split()
+            spill = sum(int(words[i - 2]) for i, w in enumerate(words) if w == "spill")
+        elif "registers" in line and name is not None:
+            words = line.replace(",", " ").split()
+            out[name] = (int(words[words.index("registers") - 1]), spill)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

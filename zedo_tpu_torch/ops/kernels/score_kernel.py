@@ -1,11 +1,15 @@
 """Fused ScoreMLP forward for the OIL hot loop: CUDA kernel and plain version.
 
 Port of zedo_tpu/ops/pallas/score_kernel.py. The kernel itself is
-`csrc/score_mlp.cu` (see its header for the design and what bounds it): one
-templated bf16 tensor-core GEMM whose epilogue applies GroupNorm, SiLU and
-the residual add, launched once per dense layer. It is built with `nvcc`
-for sm_90a at first use (`build.py`) and called through ctypes on
-PyTorch's current stream.
+`csrc/score_mlp.cu` (see its header for the design and what bounds it): a
+bf16 tensor-core product whose epilogue applies GroupNorm, SiLU and the
+residual add, launched once per dense layer. Widths whose column tile is
+128 with a power-of-two GroupNorm group (the published 1024, 2048, 256) take
+the Hopper design: wgmma fed by a TMA/mbarrier ring, GroupNorm in the
+accumulator registers. The other lane-aligned widths (384, 768) take the
+wmma kernel of the same source; `kernel_path` says which. The library is
+built with `nvcc` for sm_90a at first use (`build.py`) and called through
+ctypes on PyTorch's current stream.
 
 Packing is the same as the TPU kernel's: dense weights in input-major
 layout, pre-centred by (I - P) so GroupNorm only reduces the variance,
@@ -33,13 +37,15 @@ LANE = 128
 GN_EPS = 1e-5
 
 # launches of the CUDA kernel, by wrapper, and of fused_score_forward by
-# GroupNorm statistics mode; the wrapper adds one to each per launch
+# GroupNorm statistics mode and by kernel path; the wrapper adds one to each
+# per forward (a forward is six layer launches in the C library)
 launch_counts = {"fused_score_forward": 0}
 gn_mode_launches = {"bf16": 0, "f32": 0}
+path_launches = {"wgmma": 0, "wmma": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, gn_mode_launches):
+    for counts in (launch_counts, gn_mode_launches, path_launches):
         for name in counts:
             counts[name] = 0
 
@@ -182,12 +188,19 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("score_mlp")
-        fn = lib.zedo_score_mlp_forward
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 15
-        fn.restype = ctypes.c_int
-        for f in (lib.zedo_score_mlp_min_column_tile, lib.zedo_score_mlp_max_column_tile):
-            f.argtypes = []
-            f.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.zedo_score_mlp_forward.argtypes = [ptr] + [i32] * 8 + [ptr] * 16
+        lib.zedo_score_mlp_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr]
+        lib.zedo_score_mlp_min_column_tile.argtypes = []
+        lib.zedo_score_mlp_max_column_tile.argtypes = []
+        lib.zedo_score_mlp_takes_wgmma.argtypes = [i32] * 3
+        lib.zedo_score_mlp_padded_input.argtypes = [i32]
+        lib.zedo_score_mlp_wgmma_blocks_per_sm.argtypes = []
+        for f in (lib.zedo_score_mlp_forward, lib.zedo_score_mlp_product,
+                  lib.zedo_score_mlp_wgmma_blocks_per_sm,
+                  lib.zedo_score_mlp_min_column_tile, lib.zedo_score_mlp_max_column_tile,
+                  lib.zedo_score_mlp_takes_wgmma, lib.zedo_score_mlp_padded_input):
+            f.restype = i32
         _lib = lib
     return _lib
 
@@ -200,6 +213,26 @@ def column_tile(hidden: int, group: int) -> int:
     lcm = math.lcm(group, 16)
     tile = lcm * max(1, LANE // lcm)
     return tile if hidden % tile == 0 else lcm
+
+
+WGMMA_GROUPS = (4, 8, 16, 32, 64)
+WGMMA_STAGE_DEPTH = 64  # k-values of one pipeline stage of the wgmma kernel
+
+
+def kernel_path(hidden: int, group: int) -> str:
+    """Which kernel of the library a forward at this width takes: "wgmma"
+    where the column tile is 128 with a power-of-two group of 4 to 64
+    channels, else "wmma". Mirrors the rule of the C entry point
+    (`zedo_score_mlp_takes_wgmma`), which decides; the card tests hold the
+    two against each other."""
+    wgmma = (hidden % LANE == 0 and column_tile(hidden, group) == LANE
+             and group in WGMMA_GROUPS)
+    return "wgmma" if wgmma else "wmma"
+
+
+def padded_input_columns(c: int) -> int:
+    """Columns of the bf16 copy of x that the wgmma path reads."""
+    return math.ceil(c / WGMMA_STAGE_DEPTH) * WGMMA_STAGE_DEPTH
 
 
 def kernel_supports(cfg) -> bool:
@@ -246,12 +279,36 @@ def check_operands(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch.Tens
     _check("bias_post", packed.bias_post, torch.float32, (io_pad,), dev)
 
 
-def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
-                        vecs: torch.Tensor) -> torch.Tensor:
+def wgmma_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [M, K] bf16 @ w [K, N] bf16 -> [M, N] f32 through the wgmma kernel's
+    product and its bias epilogue (zero bias): the kernel's TMA ring,
+    descriptors and accumulator layout alone, for checks against
+    torch.matmul on the card. K a multiple of 64, N of 128."""
+    lib = load_library()
+    (m, k), n = a.shape, w.shape[1]
+    _check("a", a, torch.bfloat16, (m, k), a.device)
+    _check("w", w, torch.bfloat16, (k, n), a.device)
+    if a.device.type != "cuda" or k % WGMMA_STAGE_DEPTH or n % LANE:
+        raise ValueError(f"wgmma_product: want CUDA bf16 [M, K % 64 == 0] @ [K, N % 128 == 0], "
+                         f"got {tuple(a.shape)} @ {tuple(w.shape)} on {a.device}")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    bias = torch.zeros(n, dtype=torch.float32, device=a.device)
+    err = lib.zedo_score_mlp_product(a.data_ptr(), m, k, w.data_ptr(), n, bias.data_ptr(),
+                                     out.data_ptr(), n,
+                                     torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma product launch failed: CUDA error {err}")
+    return out
+
+
+def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch.Tensor,
+                        _force_wmma: bool = False) -> torch.Tensor:
     """One fused forward: x [B, C] f32 (C <= io_pad) -> [B, C] f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. `_force_wmma` runs the wmma kernel at a width the wgmma kernel
+    takes; only the timing harnesses (chip_smoke.py, tools.bench_kernel)
+    pass it, to time the two in one call."""
     if x.device.type == "cpu":
         return fused_score_forward_reference(x, packed, vecs)
     if x.device.type != "cuda":
@@ -271,20 +328,27 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
+    wgmma = not _force_wmma and bool(
+        lib.zedo_score_mlp_takes_wgmma(h, packed.group_size, tile))
     resid = torch.empty((b, h), dtype=torch.float32, device=x.device)
     act_h = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
     act_h1 = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
+    x_pad = torch.empty((b, lib.zedo_score_mlp_padded_input(c) if wgmma else 0),
+                        dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.zedo_score_mlp_forward(
-        x.data_ptr(), b, c, io_pad, h, packed.group_size, tile, int(mode),
+        x.data_ptr(), b, c, io_pad, h, packed.group_size, tile, int(mode), int(_force_wmma),
         packed.w_pre.data_ptr(), *(w.data_ptr() for w in packed.w_b),
         packed.w_post.data_ptr(), vecs.data_ptr(), packed.gn_scale.data_ptr(),
         packed.gn_bias.data_ptr(), packed.bias_post.data_ptr(), out.data_ptr(),
-        resid.data_ptr(), act_h.data_ptr(), act_h1.data_ptr(), stream)
+        resid.data_ptr(), act_h.data_ptr(), act_h1.data_ptr(), x_pad.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"score kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"score kernel launch failed on the {'wgmma' if wgmma else 'wmma'} path: "
+            f"CUDA error {err}")
     launch_counts["fused_score_forward"] += 1
     gn_mode_launches["bf16" if mode else "f32"] += 1
+    path_launches["wgmma" if wgmma else "wmma"] += 1
     return out
 
 

@@ -7,7 +7,11 @@ dependency chain of steps, in both GroupNorm statistics modes.
 
 Port of tools/bench_kernel.py (its kernel harness; the --probe variants,
 rejected TPU experiments, are not ported). Variants:
-  * kernel gn=bf16|f32: `fused_score_forward` (csrc/score_mlp.cu);
+  * kernel gn=bf16|f32: `fused_score_forward` (csrc/score_mlp.cu) on the
+    path its width takes, the wgmma kernel at the published width;
+  * kernel wmma gn=bf16|f32: the same with the library's wmma kernel forced,
+    the design the wgmma kernel replaced (on the CPU both are the one plain
+    version);
   * with --split, split tile=32 gn=bf16|f32: `fused_score_forward_split`
     (csrc/score_mlp_split.cu), its one row tile, and its max |diff| against
     the kernel on 1024 rows;
@@ -104,6 +108,9 @@ def main(argv=None) -> dict:
         vecs = sk.step_vectors(p, temb).contiguous()
         results[f"kernel gn={gn_name}"] = step_ms(
             lambda h, p=p, v=vecs: sk.fused_score_forward(h, p, v), x, args.iters)
+        results[f"kernel wmma gn={gn_name}"] = step_ms(
+            lambda h, p=p, v=vecs: sk.fused_score_forward(h, p, v, _force_wmma=True), x,
+            args.iters)
         if args.split:
             results[f"split tile={split.TILE_ROWS} gn={gn_name}"] = step_ms(
                 lambda h, p=p, v=vecs: split.fused_score_forward_split(h, p, v), x, args.iters)
