@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      hidden 256 and 2048 (wgmma path, groups of 8 and 64 channels) and at
      384 and 768 (wmma path, groups of 12 and 24) in both modes; the two
      paths timed in turns (wmma, wgmma, wgmma, wmma), with plain-version and
-     bf16 torch.matmul-chain times, the wrapper's host time per forward, the
-     roofline bound and the device-traffic floor of one launch per layer;
+     bf16 torch.matmul-chain times, the wrapper's host time per forward (at
+     44,300 and at 129 rows), the roofline bound and the device-traffic floor
+     of one launch per layer;
   4. kernel #2 (fused_score_forward_split) against its plain version and
      against kernel #1 at 44,300 and 1,001 rows in both modes, with its
      times beside the same yardsticks;
@@ -27,7 +28,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      50 hypotheses, a few requests, with the kernel's launches checked
      against the OIL steps, its GroupNorm mode against the default (bf16,
      JAX's default) and its path against wgmma; IPO alone; a profiled
-     request;
+     request, from which the kernel's CUDA launches per forward are counted;
   6. accuracy on the committed trained fixture (hidden 256): fp32, bf16
      (kernel #1, GroupNorm bf16) and bf16 with gn_fp32, best-hypothesis
      MPJPE against the JAX package's value for the same scenes, schedule
@@ -169,11 +170,12 @@ def layer_traffic_ms(sk, x, packed, vecs, rows):
     rate: the bound's bytes, the bf16 copy of x written and read, and between
     layers the bf16 activation and the f32 residual. Per row and hidden
     channel: layer 0 writes 4 + 2 bytes, each plain GroupNorm layer reads 2
-    and writes 2, each residual layer reads 2 + 4 and writes 4 + 2, the post
+    and writes 2, the first residual layer reads 2 + 4 and writes 4 + 2, the
+    second reads 2 + 4 and writes 2 (no layer reads its residual), the post
     layer reads 2."""
     io = x.shape[1]
     h = packed.w_pre.shape[1]
-    between = rows * h * (6 + 2 * 4 + 2 * 12 + 2)
+    between = rows * h * (6 + 2 * 4 + 12 + 8 + 2)
     ends = (rows * io * 8 + 2 * rows * sk.padded_input_columns(io) * 2
             + sum(t.numel() * t.element_size() for t in
                   (packed.w_pre, *packed.w_b, packed.w_post, vecs, packed.gn_scale,
@@ -275,6 +277,11 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
     pf, vf = weights["f32"]
     ms["f32"] = cuda_ms(torch, lambda: sk.fused_score_forward(x, pf, vf), 20, 3)
     host = host_us(torch, wgmma)
+    # a small batch: the device's time from one forward to the next, chained,
+    # against the wrapper's host time
+    small = xs[129]
+    small_ms = cuda_ms(torch, lambda: sk.fused_score_forward(small, packed, vecs), 20, 3)
+    small_host = host_us(torch, lambda: sk.fused_score_forward(small, packed, vecs))
     plain_ms = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x, packed, vecs), 3, 1)
     want = sk.fused_score_forward_reference(x, packed, vecs)
     check(torch, "library chain vs plain (yardstick)", library_forward(x, packed, vecs), want,
@@ -289,7 +296,8 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
             f"floor {traffic_ms:.4f} ms)")
     log(f"wmma path {ms_wmma:.4f} ms ({ms_wmma / ms['bf16']:.2f}x the wgmma path), plain version "
         f"{plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms, wrapper host time "
-        f"{host:.1f} us per forward")
+        f"{host:.1f} us per forward; at 129 rows {small_ms * 1e3:.1f} us from forward to forward "
+        f"(device clock, chained calls), wrapper host time {small_host:.1f} us")
 
     # the other widths JAX runs through Pallas, each on its path
     for hidden in sorted(WGMMA_WIDTHS + WMMA_WIDTHS):
@@ -312,9 +320,10 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
         "launches": None, "max_abs_err": max(errs), "ms": ms["bf16"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         "ms_gn_f32": ms["f32"], "rows": rows, "hidden": 1024, "path": "wgmma",
-        "layer_launches_per_forward": 7, "ms_wmma_path": ms_wmma,
+        "ms_wmma_path": ms_wmma,
         "max_abs_err_wmma_path": max(errs_wmma), "layer_traffic_floor_ms": traffic_ms,
-        "host_us_per_forward": host,
+        "host_us_per_forward": host, "ms_129_rows": small_ms,
+        "host_us_per_forward_129_rows": small_host,
         "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"],
     }
     return entry, weights, x
@@ -427,7 +436,15 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
         f"the unprofiled mean wall-clock; top kernels by device time:")
     for t, count, name in by_kernel[:8]:
         log(f"  {t / 1e3:10.1f} ms = {count} x {t / count:8.1f} us  {name[:90]}")
-    return launches, walls, ipo_s, busy_s
+    # CUDA launches of the kernel's library in that request, per forward
+    own = sum(count for _, count, name in by_kernel
+              if any(k in name for k in ("wgmma_layer", "pad_input", "dense_layer")))
+    if own == 0 or own % per_request:
+        fail(f"profiled request: {own} launches of the kernel's library in {per_request} "
+             f"forwards, want a whole number per forward")
+    log(f"profiled request: {own} CUDA launches of kernel #1's library = {own // per_request} "
+        f"per forward")
+    return launches, walls, ipo_s, busy_s, own // per_request
 
 
 def phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev):
@@ -560,8 +577,9 @@ def main() -> int:
     log(f"phase kernel #2: {time.perf_counter() - t0:.1f} s")
     del weights, x
     t0 = time.perf_counter()
-    entry["launches"], walls, ipo_s, busy_s = phase_main_path(
+    entry["launches"], walls, ipo_s, busy_s, per_forward = phase_main_path(
         torch, sk, tsm, presets, ZeDOEstimator, bench.build_inputs, dev)
+    entry["cuda_launches_per_forward"] = per_forward
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     kernel_share = entry["launches"] * entry["ms"] / 1e3 / sum(walls)
     log(f"request wall-clock {walls} s on {card}; kernel time (launches x kernel ms) "

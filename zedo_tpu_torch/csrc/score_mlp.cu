@@ -30,9 +30,11 @@
 // the epilogue on the tile's f32 accumulators: the only bytes that go through
 // device memory between layers are one bf16 activation and the f32 residual
 // stream. That traffic is the second bound of a one-launch-per-layer design:
-// B*H*(6 + 2*4 + 2*12 + 2) = 40*B*H bytes (layer 0 writes 6 bytes a channel,
-// a plain GroupNorm layer reads 2 and writes 2, a residual layer reads 6 and
-// writes 6, the last layer reads 2), 1.81 GB at 44,300 x 1024.
+// B*H*(6 + 2*4 + 12 + 8 + 2) = 36*B*H bytes (layer 0 writes 6 bytes a
+// channel, a plain GroupNorm layer reads 2 and writes 2, the first residual
+// layer reads 6 and writes 6, the second reads 6 and writes only the bf16
+// activation, since no later layer reads its residual, and the last layer
+// reads 2), 1.63 GB at 44,300 x 1024.
 //
 // Column tile of `dense_layer`: 16 * NF columns, a multiple of both 16 and
 // the GroupNorm group size (the wrapper picks it, score_kernel.column_tile):
@@ -90,7 +92,7 @@ struct Tile {
 enum Mode {
   GN_SILU_FIRST = 0,  // y = silu(gn(acc + vec)); resid = y; act = bf16(y)
   GN_SILU = 1,        // act = bf16(silu(gn(acc + vec)))
-  GN_SILU_RESID = 2,  // h = resid + silu(gn(acc + vec)); resid = h; act = bf16(h)
+  GN_SILU_RESID = 2,  // h = resid + silu(gn(acc + vec)); resid = h if store_resid; act = bf16(h)
   BIAS_OUT = 3,       // out = acc + vec, first ldo columns only
 };
 
@@ -108,6 +110,7 @@ struct LayerArgs {
   int gn_bf16;            // GroupNorm statistics mode: 1 bf16, 0 f32
   int mode;               // Mode
   float* resid;           // [M, N] f32 residual stream
+  int store_resid;        // 0 when no later layer reads the residual: not written
   __nv_bfloat16* act;     // [M, N] bf16 input of the next layer
   float* out;             // [M, ldo] f32 output (BIAS_OUT)
   int ldo;
@@ -144,7 +147,7 @@ __device__ __forceinline__ void finish(const LayerArgs& p, int mode, bool bf16, 
   if (gr < p.M) {
     const size_t o = (size_t)gr * p.N + gc;
     if (mode == GN_SILU_RESID) y += p.resid[o];
-    if (mode != GN_SILU) p.resid[o] = y;
+    if (mode != GN_SILU && p.store_resid) p.resid[o] = y;
     p.act[o] = __float2bfloat16(y);
   }
 }
@@ -373,7 +376,9 @@ cudaError_t launch_tile(const LayerArgs& p, int tile, cudaStream_t s) {
 // What bounds it on an H100: a hidden layer at 44,300 x 1024 is 92.9 GFLOP,
 // 0.094 ms at the 989 TFLOP/s bf16 peak, and moves 4 to 12 bytes a channel
 // (0.05 to 0.16 ms at 3.35 TB/s), so the residual layers sit where the two
-// bounds meet and the product has to overlap the epilogue's traffic.
+// bounds meet and the product has to overlap the epilogue's traffic. (The
+// second residual layer writes no residual, 8 bytes a channel: only the post
+// layer follows, and it reads the bf16 activation.)
 //
 // What the design does about it:
 //   * The product is wgmma m64n128k16 (bf16 x bf16 -> f32), A and B both read
@@ -479,6 +484,7 @@ __device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], c
   const int r = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
   const int gr[2] = {row0 + r, row0 + r + 8};
   const bool valid[2] = {gr[0] < p.M, gr[1] < p.M};
+  const bool keep[2] = {valid[0] && p.store_resid, valid[1] && p.store_resid};
 
   if constexpr (MODE == BIAS_OUT) {
 #pragma unroll
@@ -583,7 +589,7 @@ __device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], c
             y1 += res[jj][h].y;
           }
           if constexpr (MODE != GN_SILU)
-            if (valid[h]) *reinterpret_cast<float2*>(rrow[h] + 8 * j) = make_float2(y0, y1);
+            if (keep[h]) *reinterpret_cast<float2*>(rrow[h] + 8 * j) = make_float2(y0, y1);
           act[jj][h] = __floats2bfloat162_rn(y0, y1);
         }
       }
@@ -822,6 +828,7 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
   p.group = group;
   p.gn_bf16 = gn_bf16;
   p.resid = resid;
+  p.store_resid = 1;
   const bool wgmma = !force_wmma && wg::takes(h, group, tile);
   const bool shfl = tile == 128 && group <= 32 && (group & (group - 1)) == 0;
   cudaError_t err;
@@ -859,6 +866,7 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
     p.a = h1b; p.w = wb[2 * blk + 1];
     p.vec = vecs + l2 * h; p.gn_scale = gn_scale + l2 * h; p.gn_bias = gn_bias + l2 * h;
     p.act = hb; p.mode = GN_SILU_RESID;
+    p.store_resid = blk == 0;  // after the second block only the post layer follows
     err = wgmma  ? wg::layer<GN_SILU_RESID>(p, h, s)
           : shfl ? launch_shfl<false, GN_SILU_RESID>(p, s)
                  : launch_tile<false>(p, tile, s);
