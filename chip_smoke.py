@@ -6,23 +6,28 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: both kernel libraries from zedo_tpu_torch/csrc, one nvcc each,
-     started together; registers and spills of kernel #1's two kernels, its
-     wgmma kernel's resident blocks per SM, and the HGMMA (wgmma) and
-     UTMALDG (TMA load) opcodes in its SASS;
+     started together; registers and spills of their kernels, kernel #1's
+     resident blocks per SM, the clusters of kernel #2 the card holds, and
+     the HGMMA (wgmma) and UTMALDG (TMA load; for kernel #2 also its
+     multicast form) opcodes in the SASS of both;
   3. kernel #1 (fused_score_forward): its wgmma product alone against
      torch.matmul; then against its plain version at the published width
      (hidden 1024, embed 512, bf16 weights) in both GroupNorm statistics
      modes, on 44,300 rows (the H36M 886 x 50 solve), a ragged row count, 1
-     and 129 rows, on its wgmma path and with the wmma path forced; at
-     hidden 256 and 2048 (wgmma path, groups of 8 and 64 channels) and at
-     384 and 768 (wmma path, groups of 12 and 24) in both modes; the two
-     paths timed in turns (wmma, wgmma, wgmma, wmma), with plain-version and
-     bf16 torch.matmul-chain times, the wrapper's host time per forward (at
-     44,300 and at 129 rows), the roofline bound and the device-traffic floor
-     of one launch per layer;
-  4. kernel #2 (fused_score_forward_split) against its plain version and
-     against kernel #1 at 44,300 and 1,001 rows in both modes, with its
-     times beside the same yardsticks;
+     and 129 rows; at hidden 256 and 2048 (wgmma path, groups of 8 and 64
+     channels) and at 384 and 768 (wmma path, groups of 12 and 24) in both
+     modes; timed, with plain-version and bf16 torch.matmul-chain times, the
+     wrapper's host time per forward with and without the library's cache
+     of tensor maps (at 44,300 and at 129 rows), the roofline bound and the
+     device-traffic floor of one launch per layer;
+  4. kernel #2 (fused_score_forward_split): its address function against a
+     TMA load under the 128-byte swizzle, its transposed product alone
+     against torch.matmul, its rows and ring stages against the Python
+     mirror; then against its plain version and against kernel #1 at hidden
+     256, 512, 768 and 1024 in both modes on 44,300, 1,001, 47 and 1 rows,
+     alone and in clusters of 2 and 4; timed at 44,300 x 1024 (chained and
+     unchained, each cluster size, kernel #1 in the same turns), with its
+     counted weight stream and the wrapper's host time;
   5. the main path: ZeDOEstimator.predict at the published width with random
      seeded weights and the full 500 IPO / 1000 OIL schedule on 886 poses x
      50 hypotheses, a few requests, with the kernel's launches checked
@@ -95,6 +100,9 @@ KERNEL_TOL = 2e-2  # max |kernel - plain|: same bf16 operands, f32 sums in anoth
 PRODUCT_RTOL = 1e-5
 WIDTH_ROWS = 4096  # rows of the width checks of kernel #1
 WGMMA_WIDTHS, WMMA_WIDTHS = (256, 2048), (384, 768)
+# (hidden, GroupNorm groups) of kernel #2's checks: 4, 8, 12 and 16 channel
+# tiles a layer, groups of 8, 16, 32 (twice) and 64 channels
+SPLIT_WIDTHS = ((256, 32), (512, 32), (768, 24), (1024, 32), (1024, 16))
 BENCH_KERNEL_ITERS = 20
 
 
@@ -126,9 +134,9 @@ def to_bf16(torch, tree):
             for k, v in tree.items()}
 
 
-def packed_weights(torch, sk, tsm, dev, hidden=1024, embed=512):
+def packed_weights(torch, sk, tsm, dev, hidden=1024, embed=512, groups=32):
     """{gn mode: (packed, vecs)} of random seeded bf16 weights."""
-    cfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=embed)
+    cfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=embed, group_norm_groups=groups)
     params = to_bf16(torch, tsm.init_params(torch.Generator().manual_seed(0), cfg, device=dev))
     temb = tsm.time_embedding(params, cfg, torch.full((1,), 47.3, device=dev))[0]
     out = {}
@@ -197,17 +205,31 @@ def host_us(torch, fn, reps=40):
     return t / reps * 1e6
 
 
-def phase_build(torch, build, sk):
-    """Build both libraries; kernel #1's resources, occupancy and SASS."""
+def sass_counts(build, path):
+    """Occurrences of the opcodes that matter in a library's SASS."""
+    dump = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                           path], capture_output=True, text=True, timeout=300)
+    if dump.returncode != 0:
+        fail(f"cuobjdump failed: {dump.stderr[-2000:]}")
+    lines = dump.stdout.splitlines()
+    counts = {op: sum(op in line for line in lines) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    counts["UTMALDG multicast"] = sum("UTMALDG" in line and "MULTICAST" in line
+                                      for line in lines)
+    examples = [next((" ".join(line.split())[:150] for line in lines if all(w in line for w in op)),
+                     None) for op in (("HGMMA",), ("UTMALDG",), ("UTMALDG", "MULTICAST"))]
+    return counts, [e for e in examples if e]
+
+
+def phase_build(torch, build, sk, split):
+    """Build both libraries; their resources, occupancy and SASS."""
     libs = build.build()
     for name, lib in libs.items():
         log(f"build {name}: {lib.build_seconds:.1f} s -> {lib.path}")
         res = build.resources(lib.ptxas)
         if not res:
             log("ptxas: (library was already built)")
-        for label, pick in (("wgmma_layer", lambda k: "wgmma_layer" in k),
-                            ("other kernels", lambda k: "wgmma_layer" not in k)):
-            regs = [v for k, v in res.items() if pick(k)]
+        for label in ("wgmma_layer", "dense_layer", "score_mlp_split"):
+            regs = [v for k, v in res.items() if label in k]
             if regs:
                 log(f"  {name} {label}: {len(regs)} kernels, registers "
                     f"{min(r for r, _ in regs)}-{max(r for r, _ in regs)}, spill bytes "
@@ -216,20 +238,26 @@ def phase_build(torch, build, sk):
     log(f"wgmma_layer: {blocks} resident blocks per SM")
     if blocks < 1:
         fail("the wgmma kernel does not fit an SM")
-    dump = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
-                           libs["score_mlp"].path], capture_output=True, text=True, timeout=300)
-    if dump.returncode != 0:
-        fail(f"cuobjdump failed: {dump.stderr[-2000:]}")
-    counts = {op: dump.stdout.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
-    log(f"SASS of libzedo_score_mlp.so: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
-        f"UTMALDG (TMA load), {counts['HMMA']} HMMA (mma.sync, the wmma kernel, HGMMA included)")
-    for op in ("HGMMA", "UTMALDG"):
-        first = next((line for line in dump.stdout.splitlines() if op in line), None)
-        if first:
-            log(f"  e.g. {' '.join(first.split())[:150]}")
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        fail("the wgmma kernel's SASS holds no HGMMA or no UTMALDG")
-    return blocks, max(lib.build_seconds for lib in libs.values())
+    lib2 = split.load_library()
+    clusters = {c: lib2.zedo_score_mlp_split_max_clusters(1024, c) for c in split.CLUSTERS}
+    log(f"score_mlp_split at hidden 1024: {lib2.zedo_score_mlp_split_tile_rows(1024)} rows a "
+        f"block, {lib2.zedo_score_mlp_split_stages(1024)} ring stages, "
+        f"{lib2.zedo_score_mlp_split_smem_bytes(1024)} bytes of shared memory; clusters the "
+        f"card holds at a time, by cluster size: {clusters}")
+    if not all(clusters.values()):
+        fail(f"a cluster of the split kernel does not fit the card: {clusters}")
+    for name, need in (("score_mlp", ("HGMMA", "UTMALDG")),
+                       ("score_mlp_split", ("HGMMA", "UTMALDG", "UTMALDG multicast"))):
+        counts, examples = sass_counts(build, libs[name].path)
+        log(f"SASS of libzedo_{name}.so: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
+            f"UTMALDG (TMA load), {counts['UTMALDG multicast']} of them multicast, "
+            f"{counts['HMMA']} HMMA (mma.sync of the wmma kernel, HGMMA included)")
+        for e in examples:
+            log(f"  e.g. {e}")
+        for op in need:
+            if not counts[op]:
+                fail(f"the SASS of libzedo_{name}.so holds no {op}")
+    return blocks, clusters, max(lib.build_seconds for lib in libs.values())
 
 
 def phase_kernel(torch, sk, tsm, library_forward, dev):
@@ -254,34 +282,33 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
             sk.reset_launch_counts()
             errs.append(check(torch, f"kernel #1 wgmma gn={gn} vs plain",
                               sk.fused_score_forward(x, packed, vecs), want, r))
-            errs_wmma.append(check(torch, f"kernel #1 wmma (forced) gn={gn} vs plain",
-                                   sk.fused_score_forward(x, packed, vecs, _force_wmma=True),
-                                   want, r))
-            if sk.path_launches != {"wgmma": 1, "wmma": 1}:
-                fail(f"hidden 1024: paths {sk.path_launches}, want one launch of each")
+            if sk.path_launches != {"wgmma": 1, "wmma": 0}:
+                fail(f"hidden 1024: paths {sk.path_launches}, want one launch on wgmma")
     packed, vecs = weights["bf16"]
     x = xs[rows]
+    small = xs[129]
 
-    def wgmma():
+    def forward():
         return sk.fused_score_forward(x, packed, vecs)
 
-    def wmma():
-        return sk.fused_score_forward(x, packed, vecs, _force_wmma=True)
+    def forward_small():
+        return sk.fused_score_forward(small, packed, vecs)
 
-    # the two paths in turns on one card: wmma, wgmma, wgmma, wmma
-    turns = [(name, cuda_ms(torch, fn, 20, 3)) for name, fn in
-             (("wmma", wmma), ("wgmma", wgmma), ("wgmma", wgmma), ("wmma", wmma))]
-    log("kernel #1 in turns, ms: " + ", ".join(f"{name} {t:.4f}" for name, t in turns))
-    ms["bf16"] = (turns[1][1] + turns[2][1]) / 2
-    ms_wmma = (turns[0][1] + turns[3][1]) / 2
+    ms["bf16"] = cuda_ms(torch, forward, 20, 3)
     pf, vf = weights["f32"]
     ms["f32"] = cuda_ms(torch, lambda: sk.fused_score_forward(x, pf, vf), 20, 3)
-    host = host_us(torch, wgmma)
-    # a small batch: the device's time from one forward to the next, chained,
-    # against the wrapper's host time
-    small = xs[129]
-    small_ms = cuda_ms(torch, lambda: sk.fused_score_forward(small, packed, vecs), 20, 3)
-    small_host = host_us(torch, lambda: sk.fused_score_forward(small, packed, vecs))
+    # the wrapper's host time with every tensor map encoded anew (the cache
+    # off), with the cache, and both once more; and at a small batch, beside
+    # the device's time from one forward to the next, chained
+    host, small_host = {}, {}
+    for cache in (False, True, True, False):
+        sk.set_map_cache(cache)
+        host.setdefault(cache, []).append(host_us(torch, forward))
+        small_host.setdefault(cache, []).append(host_us(torch, forward_small))
+    sk.set_map_cache(True)
+    host = {c: sum(v) / len(v) for c, v in host.items()}
+    small_host = {c: sum(v) / len(v) for c, v in small_host.items()}
+    small_ms = cuda_ms(torch, forward_small, 20, 3)
     plain_ms = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x, packed, vecs), 3, 1)
     want = sk.fused_score_forward_reference(x, packed, vecs)
     check(torch, "library chain vs plain (yardstick)", library_forward(x, packed, vecs), want,
@@ -294,10 +321,11 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
             f"({flops / ms[gn] / 1e9:.1f} TFLOP/s, {bound_ms / ms[gn]:.3f} of the {bound_by} "
             f"bound {bound_ms:.4f} ms, {traffic_ms / ms[gn]:.3f} of the per-layer traffic "
             f"floor {traffic_ms:.4f} ms)")
-    log(f"wmma path {ms_wmma:.4f} ms ({ms_wmma / ms['bf16']:.2f}x the wgmma path), plain version "
-        f"{plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms, wrapper host time "
-        f"{host:.1f} us per forward; at 129 rows {small_ms * 1e3:.1f} us from forward to forward "
-        f"(device clock, chained calls), wrapper host time {small_host:.1f} us")
+    log(f"plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms; wrapper "
+        f"host time per forward with the map cache {host[True]:.1f} us, without "
+        f"{host[False]:.1f} us; at 129 rows {small_ms * 1e3:.1f} us from forward to forward "
+        f"(device clock, chained calls), wrapper host time with the cache "
+        f"{small_host[True]:.1f} us, without {small_host[False]:.1f} us")
 
     # the other widths JAX runs through Pallas, each on its path
     for hidden in sorted(WGMMA_WIDTHS + WMMA_WIDTHS):
@@ -320,47 +348,134 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
         "launches": None, "max_abs_err": max(errs), "ms": ms["bf16"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         "ms_gn_f32": ms["f32"], "rows": rows, "hidden": 1024, "path": "wgmma",
-        "ms_wmma_path": ms_wmma,
-        "max_abs_err_wmma_path": max(errs_wmma), "layer_traffic_floor_ms": traffic_ms,
-        "host_us_per_forward": host, "ms_129_rows": small_ms,
-        "host_us_per_forward_129_rows": small_host,
+        "max_abs_err_wmma_widths": max(errs_wmma), "layer_traffic_floor_ms": traffic_ms,
+        "host_us_per_forward": host[True], "host_us_per_forward_no_map_cache": host[False],
+        "ms_129_rows": small_ms, "host_us_per_forward_129_rows": small_host[True],
+        "host_us_per_forward_129_rows_no_map_cache": small_host[False],
         "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"],
     }
     return entry, weights, x
 
 
-def phase_split(torch, sk, split, library_forward, weights, x):
-    """Kernel #2 against its plain version and kernel #1; returns its JSON
-    entry (without launches)."""
+def weight_stream_bytes(split, rows, hidden, io, cluster):
+    """Bytes of weight tiles that one forward of kernel #2 reads from L2, by
+    count: every block takes in every 8 KB tile ([64 k, 64 channels]) of the
+    layers (the first layer's 64 input rows and the post layer's 64 output
+    columns that hold data), a cluster reads each once for all its blocks."""
+    tiles = hidden // 64
+    per_block = (2 * math.ceil(io / 64) * tiles + 4 * tiles * tiles) * split.TILE_BYTES
+    blocks = split.grid_blocks(rows, split.tile_rows(hidden), cluster)
+    return blocks * per_block // cluster, per_block, blocks
+
+
+def phase_split(torch, sk, split, tsm, step_ms, library_forward, weights, x):
+    """Kernel #2: its building blocks, then against its plain version and
+    kernel #1; returns its JSON entry (without launches)."""
+    dev = x.device
     gen = torch.Generator().manual_seed(2)
-    errs, ms = [], {}
-    for gn, (packed, vecs) in weights.items():
-        for xr in (x, torch.randn(1001, 51, generator=gen).to(x.device)):
-            got = split.fused_score_forward_split(xr, packed, vecs)
-            errs.append(check(torch, f"kernel #2 gn={gn} vs plain", got,
-                              split.fused_score_forward_split_reference(xr, packed, vecs),
-                              xr.shape[0]))
-            errs.append(check(torch, f"kernel #2 gn={gn} vs kernel #1", got,
-                              sk.fused_score_forward(xr, packed, vecs), xr.shape[0]))
-        ms[gn] = cuda_ms(torch, lambda: split.fused_score_forward_split(x, packed, vecs), 20, 3)
+    lib = split.load_library()
+    for hidden in range(64, 2049, 64):
+        got = (lib.zedo_score_mlp_split_tile_rows(hidden), lib.zedo_score_mlp_split_stages(hidden))
+        want = (split.tile_rows(hidden), split.ring_stages(hidden))
+        if got[0] != want[0] or (got[0] and got != want):
+            fail(f"row tile and ring stages at hidden {hidden}: library {got}, mirror {want}")
+    log("kernel #2 (rows a block, ring stages), library = mirror: " + ", ".join(
+        f"{h}: {(split.tile_rows(h), split.ring_stages(h) if split.tile_rows(h) else 0)}"
+        for h in (256, 512, 768, 1024, 1152, 2048)))
+
+    # the swizzle address function against a TMA load of the same matrix
+    for r in (8, 64, 128):
+        src = torch.randn(r, 64, generator=gen).to(dev).to(torch.bfloat16)
+        by_tma, by_function = split.swizzle_images(src)
+        torch.cuda.synchronize()
+        if not torch.equal(by_tma, by_function) or torch.equal(by_tma, src.view(-1)):
+            fail(f"swizzle128 and the TMA image differ at {r} rows (or nothing was swizzled)")
+    log("kernel #2 swizzle128 = TMA image under the 128-byte swizzle at 8, 64 and 128 rows")
+    # the transposed product alone: MN-major A from the ring, K-major B
+    for cluster in split.CLUSTERS:
+        for m, k, n in ((64, 64, 128), (300, 1024, 256), (100, 512, 64), (57, 1024, 1024)):
+            a = torch.randn(m, k, generator=gen).to(dev).to(torch.bfloat16)
+            w = torch.randn(k, n, generator=gen).to(dev).to(torch.bfloat16)
+            want = a.float() @ w.float()
+            check(torch, f"kernel #2 product {m}x{k}x{n} cluster {cluster} vs torch.matmul",
+                  split.split_product(a, w, cluster=cluster), want, m,
+                  tol=PRODUCT_RTOL * want.abs().max().item())
+
+    errs = []
+    small = {r: torch.randn(r, 51, generator=gen).to(dev) for r in (1001, 47, 1)}
+    for hidden, groups in SPLIT_WIDTHS:
+        by_gn = weights if (hidden, groups) == (1024, 32) else packed_weights(
+            torch, sk, tsm, dev, hidden=hidden, groups=groups)
+        for gn, (packed, vecs) in by_gn.items():
+            for xr in (x, *small.values()):
+                r = xr.shape[0]
+                want = split.fused_score_forward_split_reference(xr, packed, vecs)
+                one = sk.fused_score_forward(xr, packed, vecs)
+                name = f"kernel #2 hidden {hidden} (groups of {packed.group_size}) gn={gn}"
+                for cluster in split.CLUSTERS if r != x.shape[0] or hidden == 1024 else (None,):
+                    got = split.fused_score_forward_split(xr, packed, vecs, cluster=cluster)
+                    errs.append(check(torch, f"{name} cluster {cluster} vs plain", got, want, r))
+                    errs.append(check(torch, f"{name} cluster {cluster} vs kernel #1", got, one, r))
+
+    # times at the published width: unchained launches on one input, each
+    # cluster size and kernel #1 in turns, then once more in reverse order
+    rows = x.shape[0]
+    ms, ms_cluster = {}, {c: [] for c in split.CLUSTERS}
+    ms_one = []
     packed, vecs = weights["bf16"]
+    order = [*split.CLUSTERS, "kernel #1"]
+    for what in order + order[::-1]:
+        if what == "kernel #1":
+            ms_one.append(cuda_ms(torch, lambda: sk.fused_score_forward(x, packed, vecs), 20, 3))
+        else:
+            ms_cluster[what].append(cuda_ms(
+                torch, lambda: split.fused_score_forward_split(x, packed, vecs, cluster=what),
+                20, 3))
+    log("kernel #2 in turns, ms: " + ", ".join(
+        f"cluster {c}: {t[0]:.4f} / {t[1]:.4f}" for c, t in ms_cluster.items())
+        + f", kernel #1: {ms_one[0]:.4f} / {ms_one[1]:.4f}")
+    ms_cluster = {c: sum(t) / len(t) for c, t in ms_cluster.items()}
+    default = lib.zedo_score_mlp_split_default_cluster()
+    ms["bf16"] = ms_cluster[default]
+    pf, vf = weights["f32"]
+    ms["f32"] = cuda_ms(torch, lambda: split.fused_score_forward_split(x, pf, vf), 20, 3)
+    chained = {gn: step_ms(lambda h, p=p, v=v: split.fused_score_forward_split(h, p, v), x, 20)
+               for gn, (p, v) in weights.items()}
+    host = {}
+    for cache in (False, True):
+        split.set_map_cache(cache)
+        host[cache] = host_us(torch, lambda: split.fused_score_forward_split(x, packed, vecs))
     plain_ms = cuda_ms(torch, lambda: split.fused_score_forward_split_reference(x, packed, vecs),
                        3, 1)
     lib_ms = cuda_ms(torch, lambda: library_forward(x, packed, vecs), 10, 2)
-    rows = x.shape[0]
     bound_ms, bound_by, flops = bound(x, packed, vecs, rows)
     for gn in ms:
-        log(f"fused_score_forward_split gn={gn} {rows}x1024: kernel {ms[gn]:.4f} ms "
+        log(f"fused_score_forward_split gn={gn} {rows}x1024 (clusters of {default}): kernel "
+            f"{ms[gn]:.4f} ms unchained, {chained[gn]:.4f} ms chained "
             f"({flops / ms[gn] / 1e9:.1f} TFLOP/s, {bound_ms / ms[gn]:.3f} of the {bound_by} "
             f"bound {bound_ms:.4f} ms)")
-    log(f"split plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms")
+    stream = {}
+    for c in split.CLUSTERS:
+        stream[c], per_block, blocks = weight_stream_bytes(split, rows, 1024, x.shape[1], c)
+        log(f"  clusters of {c}: {ms_cluster[c]:.4f} ms; {blocks} blocks x {per_block} bytes / "
+            f"{c} = {stream[c] / 1e9:.3f} GB of weight tiles from L2 a forward, "
+            f"{stream[c] / ms_cluster[c] / 1e9:.2f} TB/s; every SM takes in "
+            f"{blocks * per_block / 1e9:.3f} GB / 132 whatever the cluster")
+    log(f"split plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms, "
+        f"kernel #1 in the same turns {sum(ms_one) / 2:.4f} ms; wrapper host time per forward "
+        f"with the map cache {host[True]:.1f} us, without {host[False]:.1f} us")
     return {
         "name": "fused_score_forward_split", "route": "cuda",
         "source": "zedo_tpu_torch/csrc/score_mlp_split.cu",
         "replaces": "tools/bench_kernel.py:108",
         "launches": None, "max_abs_err": max(errs), "ms": ms["bf16"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "ms_gn_f32": ms["f32"], "rows": rows, "hidden": 1024,
+        "ms_gn_f32": ms["f32"], "ms_chained": chained["bf16"], "ms_chained_gn_f32": chained["f32"],
+        "ms_by_cluster": ms_cluster, "default_cluster": default,
+        "weight_stream_gb_by_cluster": {c: b / 1e9 for c, b in stream.items()},
+        "ms_kernel_1_same_turns": sum(ms_one) / 2,
+        "host_us_per_forward": host[True], "host_us_per_forward_no_map_cache": host[False],
+        "rows": rows, "hidden": 1024, "tile_rows": split.tile_rows(1024),
         "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"],
     }
 
@@ -496,13 +611,12 @@ def phase_tooling(torch, sk, split, bench, bench_kernel, validate_dtype):
     res, counts = counted(sk, split, "tools.bench_kernel --split", lambda: bench_kernel.main(
         ["--split", "--iters", str(iters)]))
     # each variant: one warm-up step and `iters` timed ones, per GroupNorm
-    # mode; kernel #1 on both of its paths; the split comparison adds one
-    # launch of each kernel
-    want = {"fused_score_forward": 4 * (iters + 1) + 1,
+    # mode; the split comparison adds one launch of each kernel
+    want = {"fused_score_forward": 2 * (iters + 1) + 1,
             "fused_score_forward_split": 2 * (iters + 1) + 1}
     if counts != want:
         fail(f"bench_kernel --split launches {counts}, want {want}")
-    if sk.path_launches != {"wgmma": 2 * (iters + 1) + 1, "wmma": 2 * (iters + 1)}:
+    if sk.path_launches != {"wgmma": 2 * (iters + 1) + 1, "wmma": 0}:
         fail(f"bench_kernel --split ran kernel #1's paths {sk.path_launches}")
     if not res["split_max_abs_diff"] <= KERNEL_TOL:
         fail(f"bench_kernel --split: split vs kernel {res['split_max_abs_diff']}")
@@ -567,13 +681,14 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    blocks_per_sm, build_s = phase_build(torch, build, sk)
+    blocks_per_sm, clusters, build_s = phase_build(torch, build, sk, split)
 
     t0 = time.perf_counter()
     entry, weights, x = phase_kernel(torch, sk, tsm, bench_kernel.library_forward, dev)
     log(f"phase kernel #1: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    entry_split = phase_split(torch, sk, split, bench_kernel.library_forward, weights, x)
+    entry_split = phase_split(torch, sk, split, tsm, bench_kernel.step_ms,
+                              bench_kernel.library_forward, weights, x)
     log(f"phase kernel #2: {time.perf_counter() - t0:.1f} s")
     del weights, x
     t0 = time.perf_counter()
@@ -596,6 +711,7 @@ def main() -> int:
             fail(f"{e['name']} was not launched on its path")
 
     entry["resident_blocks_per_sm"] = blocks_per_sm
+    entry_split["max_active_clusters"] = clusters
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "build_s": build_s,

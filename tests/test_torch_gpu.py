@@ -24,8 +24,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _packed(dev, hidden, gn, embed=512):
-    tcfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=embed)
+def _packed(dev, hidden, gn, embed=512, groups=32):
+    tcfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=embed, group_norm_groups=groups)
     params = tsm.init_params(torch.Generator().manual_seed(0), tcfg, device=dev)
     packed = tsk.pack_weights(params, tcfg, dtype=torch.bfloat16, gn_dtype=GN[gn])
     temb = tsm.time_embedding(params, tcfg, torch.full((1,), 47.3, device=dev))[0]
@@ -41,7 +41,8 @@ def test_cuda_kernel_matches_plain_version(cuda_device, hidden, rows, gn):
     """The CUDA kernel against its plain version in both GroupNorm modes, on
     tile-aligned and ragged row counts: the wgmma kernel at the published
     width (groups of 32) and at groups of 4, 8, 16 and 64, the wmma kernel at
-    the widths whose groups of 12 and 24 reduce through shared memory. Each
+    the widths (384, 768) whose groups of 12 and 24 reduce through shared
+    memory. Each
     width runs the path `kernel_path` names."""
     packed, vecs = _packed(cuda_device, hidden, gn)
     path = tsk.kernel_path(hidden, packed.group_size)
@@ -55,22 +56,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, hidden, rows, gn):
         assert tsk.path_launches[path] == before[1] + 1
         want = tsk.fused_score_forward_reference(x, packed, vecs)
         assert (got - want).abs().max().item() < TOL
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("gn", ["bf16", "f32"])
-@pytest.mark.parametrize("hidden", [256, 1024, 2048])
-def test_forced_wmma_path_matches_plain_version(cuda_device, hidden, gn):
-    """The wmma kernel, forced at the widths the wgmma kernel takes, against
-    the plain version and the wgmma kernel."""
-    packed, vecs = _packed(cuda_device, hidden, gn)
-    x = torch.randn(1001, 51, generator=torch.Generator().manual_seed(3)).to(cuda_device)
-    before = tsk.path_launches["wmma"]
-    got = tsk.fused_score_forward(x, packed, vecs, _force_wmma=True)
-    torch.cuda.synchronize()
-    assert tsk.path_launches["wmma"] == before + 1
-    assert (got - tsk.fused_score_forward_reference(x, packed, vecs)).abs().max().item() < TOL
-    assert (got - tsk.fused_score_forward(x, packed, vecs)).abs().max().item() < TOL
 
 
 @pytest.mark.gpu
@@ -102,24 +87,85 @@ def test_kernel_path_mirrors_the_library(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("gn", ["bf16", "f32"])
-def test_split_kernel_matches_plain_version_and_kernel(cuda_device, gn):
-    packed, vecs = _packed(cuda_device, 1024, gn)
+@pytest.mark.parametrize("hidden,groups", [(1024, 32), (512, 32), (256, 32), (768, 24),
+                                           (1024, 16), (128, 32)])
+def test_split_kernel_matches_plain_version_and_kernel(cuda_device, hidden, groups, gn):
+    """Kernel #2 against its plain version and against kernel #1 in both
+    GroupNorm modes: at 2 to 16 channel tiles a layer (an odd count a
+    warpgroup at hidden 768), at groups of 4, 8, 16, 32 and 64 channels, on a
+    full grid and on ragged row counts (1, R - 1, R + 1, and 2R + 1, whose
+    third tile leaves a ragged last cluster), alone and in clusters of 2 and
+    4."""
+    packed, vecs = _packed(cuda_device, hidden, gn, groups=groups)
+    tile = tsplit.tile_rows(hidden)
     gen = torch.Generator().manual_seed(2)
-    for n in (4096, 1001, 17):
+    for n in (4096, 1001, 2 * tile + 1, tile + 1, tile - 1, 1):
         x = torch.randn(n, 51, generator=gen).to(cuda_device)
-        before = tsplit.launch_counts["fused_score_forward_split"]
-        got = tsplit.fused_score_forward_split(x, packed, vecs)
-        torch.cuda.synchronize()
-        assert tsplit.launch_counts["fused_score_forward_split"] == before + 1
         want = tsplit.fused_score_forward_split_reference(x, packed, vecs)
-        assert (got - want).abs().max().item() < TOL
-        assert (got - tsk.fused_score_forward(x, packed, vecs)).abs().max().item() < TOL
+        one = tsk.fused_score_forward(x, packed, vecs)
+        for cluster in (None, 1, 2, 4):
+            before = tsplit.launch_counts["fused_score_forward_split"]
+            got = tsplit.fused_score_forward_split(x, packed, vecs, cluster=cluster)
+            torch.cuda.synchronize()
+            assert tsplit.launch_counts["fused_score_forward_split"] == before + 1
+            assert (got - want).abs().max().item() < TOL, (n, cluster)
+            assert (got - one).abs().max().item() < TOL, (n, cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("m,k,n", [(64, 64, 128), (100, 512, 64), (300, 1024, 256),
+                                   (57, 1024, 1024), (1, 192, 64)])
+def test_split_product_matches_matmul(cuda_device, m, k, n, cluster):
+    """Kernel #2's transposed product alone (the weight tile as the MN-major
+    A operand from the TMA ring, multicast in a cluster; the rows as the
+    K-major B operand written through the swizzle function) against
+    torch.matmul: exact bf16 products, f32 sums in another order."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(m, k, generator=gen).to(cuda_device).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen).to(cuda_device).to(torch.bfloat16)
+    want = a.float() @ w.float()
+    got = tsplit.split_product(a, w, cluster=cluster)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 24, 64, 128])
+def test_swizzle_function_matches_tma(cuda_device, rows):
+    """The address function the epilogue writes the next layer's operand
+    with, against a TMA load of the same matrix under the 128-byte swizzle,
+    and both against the pure-Python mirror."""
+    src = torch.randn(rows, 64, generator=torch.Generator().manual_seed(6))
+    src = src.to(cuda_device).to(torch.bfloat16)
+    by_tma, by_function = tsplit.swizzle_images(src)
+    torch.cuda.synchronize()
+    assert torch.equal(by_tma, by_function)
+    mirror = torch.empty_like(by_tma)
+    offsets = torch.tensor([tsplit.swizzle128(2 * i) // 2 for i in range(rows * 64)],
+                           device=cuda_device)
+    mirror[offsets] = src.view(-1)
+    assert torch.equal(by_tma, mirror)
+
+
+@pytest.mark.gpu
+def test_split_tile_rows_mirror_the_library(cuda_device):
+    lib = tsplit.load_library()
+    for hidden in range(64, 2049, 64):
+        assert lib.zedo_score_mlp_split_tile_rows(hidden) == tsplit.tile_rows(hidden), hidden
+        if tsplit.tile_rows(hidden):
+            stages = lib.zedo_score_mlp_split_stages(hidden)
+            assert stages == tsplit.ring_stages(hidden) >= tsplit.MIN_STAGES
+            assert lib.zedo_score_mlp_split_smem_bytes(hidden) == tsplit.smem_bytes(
+                hidden, stages) <= tsplit.SMEM_LIMIT
+    assert lib.zedo_score_mlp_split_smem_limit() == tsplit.SMEM_LIMIT
+    assert lib.zedo_score_mlp_split_default_cluster() in tsplit.CLUSTERS
 
 
 @pytest.mark.gpu
 def test_kernels_raise_on_widths_they_cannot_hold(cuda_device):
-    """Groups of 68 channels need a 272-column tile; the split kernel's two
-    half tiles do not fit shared memory at hidden 2048. Both raise, naming
+    """Groups of 68 channels need a 272-column tile; the split kernel holds a
+    layer's output in registers only up to hidden 1024. Both raise, naming
     the width."""
     packed, vecs = _packed(cuda_device, 2176, "bf16")
     with pytest.raises(ValueError, match="hidden 2176"):

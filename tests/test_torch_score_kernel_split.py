@@ -96,7 +96,7 @@ def test_split_plain_version_matches_jax_split_and_fused(hidden, embed, gn):
     assert _median_rel(got, want_fused) < 0.02
     # the split reference is the fused reference's function, whatever the tile
     fused = tsk.fused_score_forward_reference(torch.from_numpy(x), tpacked, tvecs).numpy()
-    for tile in (tsplit.TILE_ROWS, rows):
+    for tile in (tsplit.tile_rows(hidden), rows):
         split = tsplit.fused_score_forward_split_reference(torch.from_numpy(x), tpacked,
                                                            tvecs, tile=tile).numpy()
         assert _median_rel(split, fused) < 1e-3
@@ -115,3 +115,87 @@ def test_split_plain_version_ragged_rows_and_launch_count():
     assert _median_rel(got.numpy(), want.numpy()) < 1e-3
     with pytest.raises(ValueError, match="unsupported device"):
         tsplit.fused_score_forward_split(torch.zeros(4, 51, device="meta"), tpacked, tvecs)
+
+
+@pytest.mark.parametrize("hidden,embed,gn", [(256, 128, "bf16"), (1024, 512, "bf16"),
+                                             (1024, 512, "f32")])
+def test_split_plain_version_at_kernel_tile_and_ragged_rows(hidden, embed, gn):
+    """The plain version at the row tile the kernel takes (56 rows) on row
+    counts that leave a ragged tile (1, R - 1, R + 1) and a ragged last
+    cluster (2R + 1: three tiles), against the JAX `_kernel_split` at that
+    tile in interpret mode and the fused Pallas kernel. Same tolerance as
+    above: the same products on the same bf16 operands, f32 sums in another
+    order."""
+    tile = tsplit.tile_rows(hidden)
+    assert tile == 56
+    jpacked, jvecs, tpacked, tvecs = _setup(hidden, embed, gn)
+    x = np.zeros((3 * tile, 51), np.float32)
+    x[:2 * tile + 1] = np.random.RandomState(6).randn(2 * tile + 1, 51)
+    x_pad = jnp.pad(jnp.asarray(x), ((0, 0), (0, 128 - 51)))
+    want_split = np.asarray(_fwd_split(x_pad, jpacked, jvecs, tile=tile))[:, :51]
+    want_fused = np.asarray(jsk.fused_score_forward(x_pad, jpacked, jvecs, tile=tile,
+                                                    interpret=True))[:, :51]
+    full = tsplit.fused_score_forward_split_reference(torch.from_numpy(x), tpacked,
+                                                      tvecs).numpy()
+    for rows in (1, tile - 1, tile + 1, 2 * tile + 1):
+        assert tsplit.grid_blocks(rows, tile, 2) * tile >= rows
+        got = tsplit.fused_score_forward_split(torch.from_numpy(x[:rows]), tpacked, tvecs).numpy()
+        assert got.shape == (rows, 51) and np.isfinite(got).all()
+        assert _median_rel(got, want_split[:rows]) < 0.02, rows
+        assert _median_rel(got, want_fused[:rows]) < 0.02, rows
+        # rows do not see each other: a ragged tile gives the full tile's rows
+        assert np.abs(got - full[:rows]).max() < 1e-5, rows
+
+
+@pytest.mark.parametrize("hidden,stages", [(128, 16), (256, 16), (512, 16), (768, 16),
+                                           (1024, 13)])
+def test_tile_rows_rule_fixed_values(hidden, stages):
+    """The Python mirror of the library's rule, held to fixed values: 56 rows
+    a block at every hidden width up to 1024 (a layer's output waits in
+    registers, 8 channel tiles of 64 a warpgroup), and for the weight ring
+    what a block's shared memory has left beside the bf16 activation buffer
+    (2 * hidden bytes a row), at most 16 tiles of 8 KB."""
+    assert tsplit.tile_rows(hidden) == 56
+    assert tsplit.check_width(hidden, 32) == 56
+    assert tsplit.ring_stages(hidden) == stages
+    assert tsplit.smem_bytes(hidden, stages) <= tsplit.SMEM_LIMIT
+    if stages < tsplit.MAX_STAGES:
+        assert tsplit.smem_bytes(hidden, stages + 1) > tsplit.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden,group,why", [(2048, 64, "hidden 2048"), (1152, 32, "hidden 1152"),
+                                              (1024, 128, "groups of 128"),
+                                              (768, 24, "groups of 24"), (1024, 2, "groups of 2"),
+                                              (192, 8, "hidden 192")])
+def test_widths_the_split_kernel_does_not_take_raise(hidden, group, why):
+    """Widths above 1024 (a layer's output would not fit the registers that
+    hold it), widths that are no multiple of 128 and GroupNorm groups the
+    register epilogue does not reduce raise, naming the width and the rule."""
+    assert tsplit.tile_rows(2048) == 0 and tsplit.tile_rows(1088) == 0
+    with pytest.raises(ValueError, match=why):
+        tsplit.check_width(hidden, group)
+
+
+def test_grid_blocks_rounds_to_whole_clusters():
+    assert tsplit.grid_blocks(44300, 56, 1) == 792  # six blocks for each of 132 SMs
+    assert tsplit.grid_blocks(44300, 56, 2) == 792
+    assert tsplit.grid_blocks(44300, 56, 4) == 792
+    assert tsplit.grid_blocks(1, 56, 4) == 4
+    assert tsplit.grid_blocks(113, 56, 2) == 4  # three tiles: a ragged last cluster
+
+
+@pytest.mark.parametrize("rows", [8, 24, 56, 64])
+def test_swizzle128_mirror_is_a_chunk_preserving_permutation(rows):
+    """The pure-Python mirror of the kernel's address function against the
+    definition of the 128-byte swizzle: within each 1024-byte atom (8 rows of
+    128 bytes) the 16-byte chunk index is XORed with the row's index in the
+    atom. So it permutes each atom and keeps 16-byte chunks whole."""
+    size = rows * 128
+    image = [tsplit.swizzle128(o) for o in range(size)]
+    for o, got in enumerate(image):
+        row, chunk, byte = o // 128, (o % 128) // 16, o % 16
+        assert got == row * 128 + ((chunk ^ (row % 8)) * 16) + byte
+    for atom in range(0, size, 1024):
+        assert sorted(image[atom:atom + 1024]) == list(range(atom, atom + 1024))
+    # an involution: applying it twice gives the offset back
+    assert [tsplit.swizzle128(o) for o in image] == list(range(size))

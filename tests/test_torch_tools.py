@@ -56,9 +56,8 @@ def test_chip_smoke_trained_reference():
 def test_bench_kernel_prints_variants_and_best(capsys):
     res = bench_kernel.main(["--rows", "40", "--iters", "2", "--split", "--device", "cpu"])
     out = capsys.readouterr().out
-    for name in ("kernel gn=bf16", "kernel gn=f32", "kernel wmma gn=bf16",
-                 "kernel wmma gn=f32", "split tile=32 gn=bf16",
-                 "split tile=32 gn=f32", "library chain bf16", "unfused bf16"):
+    for name in ("kernel gn=bf16", "kernel gn=f32", "split tile=56 gn=bf16",
+                 "split tile=56 gn=f32", "library chain bf16", "unfused bf16"):
         assert name in res and res[name] > 0 and name in out
     # the plain versions of the two kernels compute one function
     assert res["split_max_abs_diff"] < 1e-4
@@ -148,3 +147,22 @@ def test_table_and_logger_match_the_jax_package(tmp_path):
     _, out_dir, tb_dir = generic.create_logger(cfg, "test", "run", log_name="a")
     _, j_out, j_tb = jgeneric.create_logger(cfg, "test", "run", log_name="a")
     assert (out_dir, tb_dir) == (j_out, j_tb) and os.path.isdir(tb_dir)
+
+
+def test_tune_split_variants_still_match_the_kernel_source():
+    """tools.tune_split times copies of csrc/score_mlp_split.cu with a piece
+    of text replaced; every replacement must still find its text exactly
+    once, and every variant differs from the source (it needs the card to
+    build and time them)."""
+    import torch
+
+    from zedo_tpu_torch.tools import tune_split
+
+    sources = tune_split.variant_sources()
+    assert set(sources) == set(tune_split.VARIANTS)
+    original = tune_split.SOURCE.read_text()
+    for name, text in sources.items():
+        assert (text == original) == (name == "as built"), name
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs the card"):
+            tune_split.main(["--rows", "8"])

@@ -1,7 +1,9 @@
 // Building blocks of the Hopper (sm_90a) kernels: mbarriers, TMA tile loads
-// through tensor maps, wgmma (warpgroup matrix multiply) on bf16 operands in
-// 128-byte-swizzled shared memory, and the host call that encodes a tensor
-// map. Inline PTX only; no library is linked beyond the CUDA runtime
+// through tensor maps (plain and multicast to the blocks of a cluster),
+// cluster barriers, wgmma (warpgroup matrix multiply) on bf16 operands in
+// 128-byte-swizzled shared memory, the swizzle's address function, the
+// epilogues' shared arithmetic, and the host calls that encode and cache
+// tensor maps. Inline PTX only; no library is linked beyond the CUDA runtime
 // (cuTensorMapEncodeTiled is looked up in libcuda, which the runtime has
 // already loaded).
 #pragma once
@@ -12,10 +14,75 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- arithmetic the epilogues share ---------------------------------------
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// x * sigmoid(x) as x * (0.5 * tanh(x / 2) + 0.5) with `tanh.approx.f32`: one
+// MUFU operation, relative error about 2^-11, an eighth of a bf16 rounding
+// step
+__device__ __forceinline__ float silu(float x) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(0.5f * x));
+  return x * (0.5f * t + 0.5f);
+}
+
+// ---- the 128-byte swizzle -------------------------------------------------
+// Where the byte at `offset` of a tile of 128-byte rows lands under
+// CU_TENSOR_MAP_SWIZZLE_128B, both counted from the tile's 1024-byte-aligned
+// start: within each 1024-byte atom (8 rows) the index of the 16-byte chunk
+// is XORed with the row's index in the atom. A permutation of each atom that
+// keeps 16-byte chunks whole. (score_kernel_split.swizzle128 mirrors it.)
+__host__ __device__ __forceinline__ uint32_t swizzle128(uint32_t offset) {
+  return offset ^ (((offset >> 7) & 7u) << 4);
+}
+
+// makes shared-memory writes of ordinary stores visible to the asynchronous
+// proxy (wgmma and TMA read through it); follow with the barrier that
+// orders the readers after the writers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- clusters ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders shared-memory writes
+// (barrier initialisation) before, against remote accesses after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---- registers --------------------------------------------------------------
+// A whole warpgroup (four warps) gives up registers (a producer that only
+// starts copies) or takes more than the launch gave it (consumers), in a
+// branch that never meets the other role's again. A lone warp in place of a
+// warpgroup faults.
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
 // ---- mbarrier -----------------------------------------------------------
@@ -37,14 +104,31 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// one arrival at the barrier at the same shared-memory offset in block
+// `cta` of this cluster (its own rank included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
 // one arrival that also announces `bytes` of TMA traffic to wait for
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
 
+// A wait that has spun for seconds is a deadlock (these kernels run for
+// milliseconds): it traps, so the launch fails instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
+  constexpr long long DEADLOCK_CYCLES = 8000000000ll;
+  uint32_t done, spins = 0;
+  long long start = 0;
   do {
     asm volatile(
         "{\n"
@@ -55,6 +139,10 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if (!done && (++spins & 1023u) == 0) {
+      if (start == 0) start = clock64();
+      else if (clock64() - start > DEADLOCK_CYCLES) __trap();
+    }
   } while (!done);
 }
 
@@ -70,6 +158,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same box to the same shared-memory offset of every block of the
+// cluster whose bit is set in `cta_mask`; each of those blocks' barrier at
+// the offset of `bar` is told the box's bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(cta_mask)
       : "memory");
 }
 
@@ -105,9 +206,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving reads of the accumulators across a wait
-__device__ __forceinline__ void accumulator_fence(float (&d)[64]) {
+template <int REGS>
+__device__ __forceinline__ void accumulator_fence(float (&d)[REGS]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < REGS; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64x128] += a[64x16] * b[16x128]: a K-major, b MN-major (n contiguous),
@@ -151,6 +253,37 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 56] (+)= a[64 x 16] * b[16 x 56] with the operands the other way
+// round: a MN-major (m contiguous: a [k, m] tile as TMA lands it from a
+// row-major [K, M] matrix), b K-major (rows of n, k contiguous), both bf16
+// in shared memory, d f32 in registers, 28 of them a thread. accumulate = 0
+// overwrites d. In d a thread of warp w and lane l holds, for j = 0..6, rows
+// (of m) 16w + l/4 (d[4j], d[4j+1]) and 16w + l/4 + 8 (d[4j+2], d[4j+3]) at
+// the columns (of n) 8j + 2(l%4) and 8j + 2(l%4) + 1. (N is any multiple of
+// 8 up to 256: another N is this wrapper with N/2 registers.)
+__device__ __forceinline__ void wgmma_m64n56k16_tn(float (&d)[28], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27}, "
+      "%28, %29, p, 1, 1, 1, 0;\n"  // scale-d, +a, +b, a MN-major, b K-major
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // ---- tensor maps (host) -------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -185,6 +318,52 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, uint64_t rows, u
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 0 turns the cache below off (every call encodes), for timing the
+// encodings' share of a wrapper's host time
+inline bool& map_cache_enabled() {
+  static bool on = true;
+  return on;
+}
+
+// encode_bf16_map through a cache keyed by (base, rows, cols, box): a map is
+// a pure function of its key, so a hit can never be stale. The weights' maps
+// stay for the life of the packed weights; the activations' maps turn over
+// with the allocator's addresses, so the table is small and replaces its
+// entries in turn.
+inline bool cached_bf16_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint32_t box_rows, uint32_t box_cols) {
+  if (!map_cache_enabled()) return encode_bf16_map(map, base, rows, cols, box_rows, box_cols);
+  struct Slot {
+    const void* base;
+    uint64_t rows, cols;
+    uint32_t box_rows, box_cols;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 64;
+  static Slot slots[SLOTS];
+  static int used = 0, next = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i) {
+    const Slot& s = slots[i];
+    if (s.base == base && s.rows == rows && s.cols == cols && s.box_rows == box_rows &&
+        s.box_cols == box_cols) {
+      *map = s.map;
+      return true;
+    }
+  }
+  if (!encode_bf16_map(map, base, rows, cols, box_rows, box_cols)) return false;
+  int slot = used;
+  if (used < SLOTS) {
+    ++used;
+  } else {
+    slot = next;
+    next = (next + 1) % SLOTS;
+  }
+  slots[slot] = Slot{base, rows, cols, box_rows, box_cols, *map};
+  return true;
 }
 
 }  // namespace hopper

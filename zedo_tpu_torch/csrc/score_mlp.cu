@@ -17,8 +17,7 @@
 //   * `dense_layer` (first half): nvcuda::wmma fragments fed by a two-stage
 //     cp.async pipeline, epilogue through an f32 tile staged in shared
 //     memory. It takes every other lane-aligned width (384 and 768: column
-//     tiles of 96, groups of 12 and 24) and, when the caller forces it, the
-//     widths above too, so that the two can be timed against each other.
+//     tiles of 96, groups of 12 and 24).
 //
 // What bounds the forward on an H100: at the OIL shapes (B = S*N rows,
 // H = 1024) it does 2*B*(51*H + 4*H*H + H*51) operations against ~9 MB of
@@ -39,12 +38,10 @@
 // Column tile of `dense_layer`: 16 * NF columns, a multiple of both 16 and
 // the GroupNorm group size (the wrapper picks it, score_kernel.column_tile):
 // 128 for groups of 4, 8, 16, 32 and 64, 96 for 12 and 24, 80 for 20, 112
-// for 28, 144 for 36, up to 256. Groups of a power of two of at most 32
-// channels reduce with warp shuffles; every other group size reduces each
-// (row, group) through the f32 tile the epilogue stages in shared memory, so
-// a group may span warps. The shuffle path is instantiated for each epilogue
-// and GroupNorm mode, so its branches fold away; the other widths read the
-// modes at run time, one instantiation per column tile.
+// for 28, 144 for 36, up to 256. Each (row, group) reduces through the f32
+// tile the epilogue stages in shared memory, so a group may span warps. The
+// epilogue and GroupNorm modes are read at run time, one instantiation per
+// column tile.
 //
 // GroupNorm statistics in two modes, those of the TPU kernel's `gn_dtype`:
 //   f32:  var = sum(v*v) / group; factor = rsqrt(var + eps) * scale
@@ -70,6 +67,7 @@ constexpr int A_LD = BK + 8;  // bf16 row stride in shared memory (80 bytes)
 constexpr int A_STAGE = BM * A_LD;
 constexpr int MIN_NF = 5;     // narrowest column tile: 80
 constexpr int MAX_NF = 16;    // widest column tile: 256
+constexpr int LANE_TILE = 128;  // column tile of the post layer (io_pad columns)
 constexpr float GN_EPS = 1e-5f;
 
 // Shapes of a 16*NF-column tile. Warps tile it 4 x 2 when NF is even and
@@ -117,15 +115,7 @@ struct LayerArgs {
   int M;
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// A kernel's epilogue mode and GroupNorm statistics mode (1 bf16, 0 f32)
-// are template arguments where the kernel is instantiated for them (the
-// published width's shuffle path), so their branches fold away, or RUNTIME
-// to read them from LayerArgs (the other widths, one kernel per tile).
-constexpr int RUNTIME = -1;
+using hopper::round_bf16;
 
 // one channel's contribution to its group's sum of squares
 __device__ __forceinline__ float square(float v, bool bf16) {
@@ -196,15 +186,11 @@ __device__ __forceinline__ void load_stage(const LayerArgs& p, __nv_bfloat16* dA
   }
 }
 
-// SHFL: groups of a power of two of at most 32 channels in a 128-column
-// tile, reduced with warp shuffles; otherwise through the staged tile.
-// MODE, GN: the epilogue and GroupNorm statistics modes, or RUNTIME.
-template <bool A_F32, int NF, bool SHFL, int MODE, int GN>
+template <bool A_F32, int NF>
 __global__ void __launch_bounds__(THREADS) dense_layer(const LayerArgs p) {
   using T = Tile<NF>;
-  static_assert(!SHFL || T::BN == 128, "the shuffle reduction needs 32-column warp rows");
-  const int mode = MODE == RUNTIME ? p.mode : MODE;
-  const bool bf16 = GN == RUNTIME ? p.gn_bf16 != 0 : GN == 1;
+  const int mode = p.mode;
+  const bool bf16 = p.gn_bf16 != 0;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sB = sA + 2 * A_STAGE;
@@ -276,91 +262,69 @@ __global__ void __launch_bounds__(THREADS) dense_layer(const LayerArgs p) {
     return;
   }
 
-  if constexpr (SHFL) {
-    // A warp covers 32 consecutive columns of one row, so the lanes of one
-    // GroupNorm group are neighbours and reduce with shuffles. Every lane
-    // runs the same number of iterations, so the shuffles see the full warp.
-    for (int idx = tid; idx < BM * T::BN; idx += THREADS) {
-      const int r = idx / T::BN, c = idx % T::BN;
-      const float v = sC[r * T::C_LD + c] + p.vec[col0 + c];
-      float ss = square(v, bf16);
-      for (int off = p.group >> 1; off > 0; off >>= 1)
-        ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      finish(p, mode, bf16, v, group_rstd(ss, p, bf16), row0 + r, col0 + c);
-    }
-  } else {
-    // one thread per (row, group): consecutive threads take consecutive
-    // rows of one group; the group's rstd goes to shared memory after the
-    // staged tile
-    float* sR = sC + BM * T::C_LD;
-    const int gpt = T::BN / p.group;  // groups per tile
-    const bool vec4 = (p.group & 3) == 0;
-    for (int q = tid; q < BM * gpt; q += THREADS) {
-      const int r = q % BM, c0 = (q / BM) * p.group;
-      const float* row = sC + r * T::C_LD + c0;
-      const float* vec = p.vec + col0 + c0;
-      float ss = 0.f;
-      if (vec4) {
-        for (int k = 0; k < p.group; k += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(row + k);
-          const float4 b = __ldg(reinterpret_cast<const float4*>(vec + k));
-          ss += square(a.x + b.x, bf16) + square(a.y + b.y, bf16) +
-                square(a.z + b.z, bf16) + square(a.w + b.w, bf16);
-        }
-      } else {
-        for (int k = 0; k < p.group; ++k) ss += square(row[k] + vec[k], bf16);
+  // one thread per (row, group): consecutive threads take consecutive rows
+  // of one group; the group's rstd goes to shared memory after the staged
+  // tile
+  float* sR = sC + BM * T::C_LD;
+  const int gpt = T::BN / p.group;  // groups per tile
+  const bool vec4 = (p.group & 3) == 0;
+  for (int q = tid; q < BM * gpt; q += THREADS) {
+    const int r = q % BM, c0 = (q / BM) * p.group;
+    const float* row = sC + r * T::C_LD + c0;
+    const float* vec = p.vec + col0 + c0;
+    float ss = 0.f;
+    if (vec4) {
+      for (int k = 0; k < p.group; k += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(row + k);
+        const float4 b = __ldg(reinterpret_cast<const float4*>(vec + k));
+        ss += square(a.x + b.x, bf16) + square(a.y + b.y, bf16) +
+              square(a.z + b.z, bf16) + square(a.w + b.w, bf16);
       }
-      sR[r * gpt + q / BM] = group_rstd(ss, p, bf16);
+    } else {
+      for (int k = 0; k < p.group; ++k) ss += square(row[k] + vec[k], bf16);
     }
-    __syncthreads();
-    for (int idx = tid; idx < BM * T::BN; idx += THREADS) {
-      const int r = idx / T::BN, c = idx % T::BN;
-      const float v = sC[r * T::C_LD + c] + p.vec[col0 + c];
-      finish(p, mode, bf16, v, sR[r * gpt + c / p.group], row0 + r, col0 + c);
-    }
+    sR[r * gpt + q / BM] = group_rstd(ss, p, bf16);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * T::BN; idx += THREADS) {
+    const int r = idx / T::BN, c = idx % T::BN;
+    const float v = sC[r * T::C_LD + c] + p.vec[col0 + c];
+    finish(p, mode, bf16, v, sR[r * gpt + c / p.group], row0 + r, col0 + c);
   }
 }
 
-template <bool A_F32, int NF, bool SHFL, int MODE = RUNTIME, int GN = RUNTIME>
+template <bool A_F32, int NF>
 cudaError_t launch(const LayerArgs& p, cudaStream_t stream) {
   using T = Tile<NF>;
   if (p.N % T::BN != 0 || (p.mode != BIAS_OUT && T::BN % p.group != 0))
     return cudaErrorInvalidValue;
-  const int rstd_bytes = SHFL || p.mode == BIAS_OUT ? 0 : BM * (T::BN / p.group) * 4;
+  const int rstd_bytes = p.mode == BIAS_OUT ? 0 : BM * (T::BN / p.group) * 4;
   const int epi = T::EPI_SMEM + rstd_bytes;
   const int smem = T::MAIN_SMEM > epi ? T::MAIN_SMEM : epi;
-  cudaError_t err = cudaFuncSetAttribute(dense_layer<A_F32, NF, SHFL, MODE, GN>,
+  cudaError_t err = cudaFuncSetAttribute(dense_layer<A_F32, NF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.N / T::BN, (p.M + BM - 1) / BM);
-  dense_layer<A_F32, NF, SHFL, MODE, GN><<<grid, THREADS, smem, stream>>>(p);
+  dense_layer<A_F32, NF><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// a layer of the published width's path: 128-column tile, shuffle
-// reduction, modes fixed at compile time
-template <bool A_F32, int MODE>
-cudaError_t launch_shfl(const LayerArgs& p, cudaStream_t s) {
-  return p.gn_bf16 ? launch<A_F32, 8, true, MODE, 1>(p, s)
-                   : launch<A_F32, 8, true, MODE, 0>(p, s);
-}
-
-// a layer of any other width: the instantiation for its column tile
+// a layer on the instantiation for its column tile
 template <bool A_F32>
 cudaError_t launch_tile(const LayerArgs& p, int tile, cudaStream_t s) {
   switch (tile) {
-    case 80: return launch<A_F32, 5, false>(p, s);
-    case 96: return launch<A_F32, 6, false>(p, s);
-    case 112: return launch<A_F32, 7, false>(p, s);
-    case 128: return launch<A_F32, 8, false>(p, s);
-    case 144: return launch<A_F32, 9, false>(p, s);
-    case 160: return launch<A_F32, 10, false>(p, s);
-    case 176: return launch<A_F32, 11, false>(p, s);
-    case 192: return launch<A_F32, 12, false>(p, s);
-    case 208: return launch<A_F32, 13, false>(p, s);
-    case 224: return launch<A_F32, 14, false>(p, s);
-    case 240: return launch<A_F32, 15, false>(p, s);
-    case 256: return launch<A_F32, 16, false>(p, s);
+    case 80: return launch<A_F32, 5>(p, s);
+    case 96: return launch<A_F32, 6>(p, s);
+    case 112: return launch<A_F32, 7>(p, s);
+    case 128: return launch<A_F32, 8>(p, s);
+    case 144: return launch<A_F32, 9>(p, s);
+    case 160: return launch<A_F32, 10>(p, s);
+    case 176: return launch<A_F32, 11>(p, s);
+    case 192: return launch<A_F32, 12>(p, s);
+    case 208: return launch<A_F32, 13>(p, s);
+    case 224: return launch<A_F32, 14>(p, s);
+    case 240: return launch<A_F32, 15>(p, s);
+    case 256: return launch<A_F32, 16>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -426,10 +390,10 @@ cudaError_t launch_tile(const LayerArgs& p, int tile, cudaStream_t s) {
 // 256-byte L2 promotion in the tensor maps, and 16-byte residual loads and
 // stores through two more shuffles.
 //
-// SiLU is x * (0.5 * tanh(x / 2) + 0.5) with `tanh.approx.f32` (one MUFU
-// operation, relative error about 2^-11, an eighth of a bf16 rounding
-// step); the wmma kernel and the plain version use the precise tanhf, and
-// the kernel is held against the plain version within the same tolerance.
+// SiLU is x * (0.5 * tanh(x / 2) + 0.5) with `tanh.approx.f32`
+// (hopper::silu); the wmma kernel and the plain version use the precise
+// tanhf, and the kernel is held against the plain version within the same
+// tolerance.
 namespace wg {
 
 using namespace hopper;
@@ -450,12 +414,6 @@ template <int G>
 __device__ __forceinline__ float rstd_of(float ss, bool bf16) {
   if (bf16) return round_bf16(rsqrtf(ss * round_bf16(1.f / G) + GN_EPS));
   return rsqrtf(ss / G + GN_EPS);
-}
-
-__device__ __forceinline__ float silu(float x) {
-  float t;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(0.5f * x));
-  return x * (0.5f * t + 0.5f);
 }
 
 // x [m, c] f32 -> xp [m, k0] bf16, the columns past c zero; one thread per
@@ -737,8 +695,8 @@ cudaError_t launch_group(const CUtensorMap& a, const CUtensorMap& b, const Layer
 template <int MODE>
 cudaError_t layer(const LayerArgs& p, int w_rows, cudaStream_t s) {
   CUtensorMap map_a, map_b;
-  if (!encode_bf16_map(&map_a, p.a, p.M, p.lda, BM, BK) ||
-      !encode_bf16_map(&map_b, p.w, w_rows, p.N, BK, 64))
+  if (!cached_bf16_map(&map_a, p.a, p.M, p.lda, BM, BK) ||
+      !cached_bf16_map(&map_b, p.w, w_rows, p.N, BK, 64))
     return cudaErrorNotSupported;  // libcuda refused the map or lacks the call
   if constexpr (MODE == BIAS_OUT)
     return launch<BIAS_OUT, 0, 32>(map_a, map_b, p, s);
@@ -762,6 +720,10 @@ extern "C" {
 // Narrowest and widest column tiles the wmma kernel is built for.
 int zedo_score_mlp_min_column_tile() { return 16 * MIN_NF; }
 int zedo_score_mlp_max_column_tile() { return 16 * MAX_NF; }
+
+// 0 makes every layer encode its tensor maps anew, 1 (the default) takes them
+// from the cache; for timing the wrapper's host time with and without it.
+void zedo_score_mlp_map_cache(int on) { hopper::map_cache_enabled() = on != 0; }
 
 // 1 when a forward at this width takes the wgmma kernel, 0 the wmma kernel.
 int zedo_score_mlp_takes_wgmma(int h, int group, int tile) { return wg::takes(h, group, tile); }
@@ -804,14 +766,13 @@ int zedo_score_mlp_product(const void* a, int m, int k, const void* w, int n, co
 // [io_pad] f32. resid [m, h] f32, act_h, act_h1 [m, h] bf16 and x_pad
 // [m, zedo_score_mlp_padded_input(c)] bf16 are scratch.
 // tile: the column tile of the hidden layers (a multiple of 16 and of
-// `group`, dividing h); gn_bf16: GroupNorm statistics mode (1 bf16, 0 f32);
-// force_wmma: 1 runs the wmma kernel at a width the wgmma kernel takes.
+// `group`, dividing h); gn_bf16: GroupNorm statistics mode (1 bf16, 0 f32).
 // Nothing here allocates or synchronises. Returns the first CUDA error of
 // the launches, or 0.
 int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int group,
-                           int tile, int gn_bf16, int force_wmma, const void* w_pre,
-                           const void* w_b1, const void* w_b2, const void* w_b3,
-                           const void* w_b4, const void* w_post, const float* vecs,
+                           int tile, int gn_bf16, const void* w_pre, const void* w_b1,
+                           const void* w_b2, const void* w_b3, const void* w_b4,
+                           const void* w_post, const float* vecs,
                            const float* gn_scale, const float* gn_bias,
                            const float* bias_post, float* out, float* resid, void* act_h,
                            void* act_h1, void* x_pad, void* stream) {
@@ -829,8 +790,7 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
   p.gn_bf16 = gn_bf16;
   p.resid = resid;
   p.store_resid = 1;
-  const bool wgmma = !force_wmma && wg::takes(h, group, tile);
-  const bool shfl = tile == 128 && group <= 32 && (group & (group - 1)) == 0;
+  const bool wgmma = wg::takes(h, group, tile);
   cudaError_t err;
 
   // pre_dense -> GN -> SiLU: starts the residual stream
@@ -848,7 +808,7 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
     err = wg::layer<GN_SILU_FIRST>(p, io_pad, s);
   } else {
     p.a = x; p.lda = c; p.k_valid = c; p.K = io_pad;
-    err = shfl ? launch_shfl<true, GN_SILU_FIRST>(p, s) : launch_tile<true>(p, tile, s);
+    err = launch_tile<true>(p, tile, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -858,18 +818,14 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
     p.a = hb; p.w = wb[2 * blk];
     p.vec = vecs + l1 * h; p.gn_scale = gn_scale + l1 * h; p.gn_bias = gn_bias + l1 * h;
     p.act = h1b; p.mode = GN_SILU;
-    err = wgmma  ? wg::layer<GN_SILU>(p, h, s)
-          : shfl ? launch_shfl<false, GN_SILU>(p, s)
-                 : launch_tile<false>(p, tile, s);
+    err = wgmma ? wg::layer<GN_SILU>(p, h, s) : launch_tile<false>(p, tile, s);
     if (err != cudaSuccess) return static_cast<int>(err);
 
     p.a = h1b; p.w = wb[2 * blk + 1];
     p.vec = vecs + l2 * h; p.gn_scale = gn_scale + l2 * h; p.gn_bias = gn_bias + l2 * h;
     p.act = hb; p.mode = GN_SILU_RESID;
     p.store_resid = blk == 0;  // after the second block only the post layer follows
-    err = wgmma  ? wg::layer<GN_SILU_RESID>(p, h, s)
-          : shfl ? launch_shfl<false, GN_SILU_RESID>(p, s)
-                 : launch_tile<false>(p, tile, s);
+    err = wgmma ? wg::layer<GN_SILU_RESID>(p, h, s) : launch_tile<false>(p, tile, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
@@ -877,7 +833,7 @@ int zedo_score_mlp_forward(const float* x, int m, int c, int io_pad, int h, int 
   p.a = hb; p.w = static_cast<const __nv_bfloat16*>(w_post); p.N = io_pad;
   p.vec = bias_post; p.gn_scale = nullptr; p.gn_bias = nullptr;
   p.out = out; p.ldo = c; p.act = nullptr; p.mode = BIAS_OUT;
-  err = wgmma ? wg::layer<BIAS_OUT>(p, h, s) : launch<false, 8, true, BIAS_OUT, 0>(p, s);
+  err = wgmma ? wg::layer<BIAS_OUT>(p, h, s) : launch_tile<false>(p, LANE_TILE, s);
   return static_cast<int>(err);
 }
 

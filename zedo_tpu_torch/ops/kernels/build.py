@@ -55,6 +55,14 @@ def _so_path(name: str) -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16] / f"libzedo_{name}.so"
 
 
+def nvcc_command(source, out) -> list:
+    """The nvcc call that compiles one source (of csrc/, or a copy of one
+    elsewhere: csrc/ is on the include path) into the shared library `out`."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out),
+            str(source), "-ldl"]
+
+
 def build(names=tuple(SOURCES)) -> dict:
     """{name: Library} for `names`, building the missing ones in parallel."""
     if not torch.cuda.is_available():
@@ -68,10 +76,8 @@ def build(names=tuple(SOURCES)) -> dict:
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.so")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / SOURCES[name]), "-ldl"]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(nvcc_command(CSRC / SOURCES[name], tmp),
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), tmp, so)
     built = {}
     for name, (proc, tmp, so) in procs.items():

@@ -189,13 +189,15 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("score_mlp")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.zedo_score_mlp_forward.argtypes = [ptr] + [i32] * 8 + [ptr] * 16
+        lib.zedo_score_mlp_forward.argtypes = [ptr] + [i32] * 7 + [ptr] * 16
         lib.zedo_score_mlp_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr]
         lib.zedo_score_mlp_min_column_tile.argtypes = []
         lib.zedo_score_mlp_max_column_tile.argtypes = []
         lib.zedo_score_mlp_takes_wgmma.argtypes = [i32] * 3
         lib.zedo_score_mlp_padded_input.argtypes = [i32]
         lib.zedo_score_mlp_wgmma_blocks_per_sm.argtypes = []
+        lib.zedo_score_mlp_map_cache.argtypes = [i32]
+        lib.zedo_score_mlp_map_cache.restype = None
         for f in (lib.zedo_score_mlp_forward, lib.zedo_score_mlp_product,
                   lib.zedo_score_mlp_wgmma_blocks_per_sm,
                   lib.zedo_score_mlp_min_column_tile, lib.zedo_score_mlp_max_column_tile,
@@ -301,14 +303,19 @@ def wgmma_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch.Tensor,
-                        _force_wmma: bool = False) -> torch.Tensor:
+def set_map_cache(on: bool) -> None:
+    """Turn the library's cache of tensor maps off or on (on by default):
+    with it off every layer of the wgmma path encodes its two maps anew.
+    For timing the wrapper's host time with and without the cache."""
+    load_library().zedo_score_mlp_map_cache(int(on))
+
+
+def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
+                        vecs: torch.Tensor) -> torch.Tensor:
     """One fused forward: x [B, C] f32 (C <= io_pad) -> [B, C] f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. `_force_wmma` runs the wmma kernel at a width the wgmma kernel
-    takes; only the timing harnesses (chip_smoke.py, tools.bench_kernel)
-    pass it, to time the two in one call."""
+    raise."""
     if x.device.type == "cpu":
         return fused_score_forward_reference(x, packed, vecs)
     if x.device.type != "cuda":
@@ -328,8 +335,7 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    wgmma = not _force_wmma and bool(
-        lib.zedo_score_mlp_takes_wgmma(h, packed.group_size, tile))
+    wgmma = bool(lib.zedo_score_mlp_takes_wgmma(h, packed.group_size, tile))
     resid = torch.empty((b, h), dtype=torch.float32, device=x.device)
     act_h = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
     act_h1 = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
@@ -337,7 +343,7 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights, vecs: torch
                         dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.zedo_score_mlp_forward(
-        x.data_ptr(), b, c, io_pad, h, packed.group_size, tile, int(mode), int(_force_wmma),
+        x.data_ptr(), b, c, io_pad, h, packed.group_size, tile, int(mode),
         packed.w_pre.data_ptr(), *(w.data_ptr() for w in packed.w_b),
         packed.w_post.data_ptr(), vecs.data_ptr(), packed.gn_scale.data_ptr(),
         packed.gn_bias.data_ptr(), packed.bias_post.data_ptr(), out.data_ptr(),

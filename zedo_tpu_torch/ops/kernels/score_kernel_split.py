@@ -5,7 +5,11 @@ Port of tools/bench_kernel.py:108 `fwd_split` (body `_kernel_split`), the
 TPU experiment that ran each row tile of the fused score kernel as two
 half-tile chains so that one half's GroupNorm/SiLU overlaps the other
 half's products. The kernel is `csrc/score_mlp_split.cu` (see its header
-for the design and what bounds it); it computes exactly the function of
+for the design and what bounds it): `wgmma` with the rows on N, one TMA
+weight ring, two warpgroups that take the channel tiles in turn (one's
+GroupNorm/SiLU under the other's products), a layer's output held in
+registers, optionally a cluster whose blocks multicast the weights to each
+other. It computes exactly the function of
 `score_kernel.fused_score_forward` on the same `PackedScoreWeights`, in both
 GroupNorm statistics modes.
 
@@ -16,14 +20,22 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from zedo_tpu_torch.ops.kernels import build
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
 
-TILE_ROWS = 32  # rows of the kernel's block: two half chains of 16 rows
-CHUNK = 128  # output columns of the kernel's epilogue: groups must divide it
+# The block's shared-memory budget, mirrored from csrc/score_mlp_split.cu
+# (the library decides; `load_library` holds the two against each other).
+SMEM_LIMIT = 232448  # dynamic shared memory of an H100 block
+TILE_BYTES = 8192  # a tile of the weight ring: [64 k, 64 channels] bf16
+MIN_STAGES, MAX_STAGES = 4, 16  # tiles of the ring: at least, at most
+TILE_ROWS = 56  # rows of a block: the N of the kernel's wgmma
+MAX_HIDDEN = 1024  # a layer's output waits in registers: 16 channel tiles of 64
+GROUPS = (4, 8, 16, 32, 64)  # channels of a GroupNorm group the kernel reduces
+CLUSTERS = (1, 2, 4)  # blocks that may share one weight stream
 
 # launches of the CUDA kernel; the wrapper adds one per launch
 launch_counts = {"fused_score_forward_split": 0}
@@ -34,15 +46,65 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def smem_bytes(hidden: int, stages: int) -> int:
+    """Shared memory of a block with a ring of `stages` tiles: alignment
+    slack, the ring, one bf16 activation buffer (2 * hidden bytes a row), the
+    warps' exchange of GroupNorm sums and the barriers."""
+    return (1024 + stages * TILE_BYTES + 2 * hidden * TILE_ROWS + 64 * TILE_ROWS
+            + 3 * MAX_STAGES * 8)
+
+
+def tile_rows(hidden: int) -> int:
+    """Rows of the kernel's block at this width, 0 for a width it does not
+    take: 56 rows where the hidden width is a multiple of 64 up to 1024 (a
+    layer's output waits in registers, 8 channel tiles of 64 a warpgroup) and
+    the layer's input fits a block beside a ring of MIN_STAGES tiles."""
+    fits = smem_bytes(hidden, MIN_STAGES) <= SMEM_LIMIT
+    return TILE_ROWS if hidden % 64 == 0 and hidden <= MAX_HIDDEN and fits else 0
+
+
+def ring_stages(hidden: int) -> int:
+    """Stages of the weight ring: what the block's shared memory has left."""
+    return min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(hidden, 0)) // TILE_BYTES)
+
+
+def check_width(hidden: int, group: int) -> int:
+    """Rows of the kernel's block at this width; raises, naming the width and
+    the rule, for a width or a GroupNorm group size the kernel does not
+    take."""
+    tile = tile_rows(hidden)
+    if hidden % sk.LANE or group not in GROUPS or not tile:
+        raise ValueError(
+            f"the split kernel does not take hidden {hidden} with GroupNorm groups of "
+            f"{group}: it needs hidden a multiple of {sk.LANE} up to {MAX_HIDDEN} (a layer's "
+            f"output of {TILE_ROWS} rows waits in registers) and groups of {GROUPS} channels")
+    return tile
+
+
+def grid_blocks(rows: int, tile: int, cluster: int) -> int:
+    """Blocks of a launch: the row tiles, rounded up to whole clusters."""
+    return math.ceil(math.ceil(rows / tile) / cluster) * cluster
+
+
+def swizzle128(offset: int) -> int:
+    """Where the byte at `offset` of a tile of 128-byte rows lies under the
+    128-byte swizzle, both counted from the tile's 1024-byte-aligned start
+    (hopper.cuh `swizzle128`): the index of the 16-byte chunk is XORed with
+    the row's index within its 1024-byte atom."""
+    return offset ^ (((offset >> 7) & 7) << 4)
+
+
 def fused_score_forward_split_reference(x: torch.Tensor, packed: sk.PackedScoreWeights,
                                         vecs: torch.Tensor,
-                                        tile: int = TILE_ROWS) -> torch.Tensor:
+                                        tile: int | None = None) -> torch.Tensor:
     """Plain version of the split forward, the TPU `_kernel_split` written
-    out: the rows are cut into tiles of `tile`, each tile into two halves,
-    and the two halves run their chains side by side, layer by layer.
+    out: the rows are cut into tiles of `tile` (the rows of the kernel's
+    block by default), each tile into two halves, and the two halves run
+    their chains side by side, layer by layer.
     x [B, C] f32 -> [B, C] f32, the function of the fused forward."""
     b, c = x.shape
-    io_pad = packed.w_pre.shape[0]
+    io_pad, hidden = packed.w_pre.shape
+    tile = tile or TILE_ROWS
     half = tile // 2
     x_pad = sk.pad_rows(torch.nn.functional.pad(x.float(), (0, io_pad - c)), tile)
     tiles = x_pad.view(-1, 2, half, io_pad)
@@ -65,27 +127,112 @@ _lib = None
 def load_library() -> ctypes.CDLL:
     """The kernel's library, built at first use. Raises when CUDA or nvcc is
     missing; there is no fallback."""
-    global _lib
     if _lib is None:
-        lib = build.load("score_mlp_split")
-        fn = lib.zedo_score_mlp_split_forward
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
-        fn.restype = ctypes.c_int
-        for f in (lib.zedo_score_mlp_split_tile_rows, lib.zedo_score_mlp_split_smem_limit):
-            f.argtypes = []
-            f.restype = ctypes.c_int
-        lib.zedo_score_mlp_split_smem_bytes.argtypes = [ctypes.c_int]
-        lib.zedo_score_mlp_split_smem_bytes.restype = ctypes.c_int
-        if lib.zedo_score_mlp_split_tile_rows() != TILE_ROWS:
-            raise RuntimeError("the split kernel's row tile differs from TILE_ROWS")
-        _lib = lib
+        bind_library(build.load("score_mlp_split"))
     return _lib
 
 
+def bind_library(lib: ctypes.CDLL | None) -> None:
+    """Make `lib` the library the wrappers call: the one `load_library`
+    builds, or a variant of it (tools.tune_split). None: back to the one
+    `load_library` builds, at its next call."""
+    global _lib
+    if lib is None:
+        _lib = None
+        return
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.zedo_score_mlp_split_forward.argtypes = (
+        [ptr] + [i32] * 7 + [ptr] * 12 + [ctypes.c_longlong, ptr])
+    lib.zedo_score_mlp_split_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr]
+    lib.zedo_swizzle_check.argtypes = [ptr, i32, ptr, ptr, ptr]
+    lib.zedo_score_mlp_split_tile_rows.argtypes = [i32]
+    lib.zedo_score_mlp_split_smem_bytes.argtypes = [i32]
+    lib.zedo_score_mlp_split_stages.argtypes = [i32]
+    lib.zedo_score_mlp_split_smem_limit.argtypes = []
+    lib.zedo_score_mlp_split_default_cluster.argtypes = []
+    lib.zedo_score_mlp_split_max_clusters.argtypes = [i32, i32]
+    lib.zedo_score_mlp_split_map_cache.argtypes = [i32]
+    lib.zedo_score_mlp_split_map_cache.restype = None
+    for f in (lib.zedo_score_mlp_split_forward, lib.zedo_score_mlp_split_product,
+              lib.zedo_swizzle_check, lib.zedo_score_mlp_split_tile_rows,
+              lib.zedo_score_mlp_split_smem_bytes, lib.zedo_score_mlp_split_stages,
+              lib.zedo_score_mlp_split_smem_limit,
+              lib.zedo_score_mlp_split_default_cluster,
+              lib.zedo_score_mlp_split_max_clusters):
+        f.restype = i32
+    for hidden in range(64, 2049, 64):
+        if lib.zedo_score_mlp_split_tile_rows(hidden) != tile_rows(hidden):
+            raise RuntimeError(f"the split kernel's row tile at hidden {hidden} differs "
+                               f"from score_kernel_split.tile_rows")
+    _lib = lib
+
+
+def set_map_cache(on: bool) -> None:
+    """Turn the library's cache of tensor maps off or on (on by default);
+    for timing the wrapper's host time with and without it."""
+    load_library().zedo_score_mlp_split_map_cache(int(on))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _cluster(lib, cluster) -> int:
+    cluster = cluster or lib.zedo_score_mlp_split_default_cluster()
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster: want one of {CLUSTERS}, got {cluster}")
+    return cluster
+
+
+def split_product(a: torch.Tensor, w: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+    """a [M, K] bf16 @ w [K, N] bf16 -> [M, N] f32 through the split kernel's
+    transposed product alone (weight tiles as the MN-major A operand from
+    the TMA ring, the rows as B written through the swizzle function, the
+    accumulator layout of the output layer), for checks against
+    torch.matmul on the card. K and N multiples of 64 up to 1024."""
+    lib = load_library()
+    (m, k), n = a.shape, w.shape[1]
+    sk._check("a", a, torch.bfloat16, (m, k), a.device)
+    sk._check("w", w, torch.bfloat16, (k, n), a.device)
+    if a.device.type != "cuda" or n % 64 or not tile_rows(k) or not tile_rows(n):
+        raise ValueError(f"split_product: want CUDA bf16 [M, K] @ [K, N], K and N multiples of "
+                         f"64 up to {MAX_HIDDEN}, got {tuple(a.shape)} @ {tuple(w.shape)} on "
+                         f"{a.device}")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    bias = torch.zeros(n, dtype=torch.float32, device=a.device)
+    a32 = a.float()
+    err = lib.zedo_score_mlp_split_product(a32.data_ptr(), m, k, w.data_ptr(), n,
+                                           bias.data_ptr(), out.data_ptr(),
+                                           _cluster(lib, cluster), _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"split product launch failed: CUDA error {err}")
+    return out
+
+
+def swizzle_images(src: torch.Tensor):
+    """src [rows, 64] bf16 on the card (rows a multiple of 8 up to 128) ->
+    two flat bf16 images of shared memory holding it under the 128-byte
+    swizzle: as one TMA box lands it, and as the kernel's address function
+    (`swizzle128`) places it. They must be equal."""
+    lib = load_library()
+    rows = src.shape[0]
+    sk._check("src", src, torch.bfloat16, (rows, 64), src.device)
+    if src.device.type != "cuda" or rows % 8 or not 0 < rows <= 128:
+        raise ValueError(f"swizzle_images: want CUDA bf16 [rows % 8 == 0 up to 128, 64], got "
+                         f"{tuple(src.shape)} on {src.device}")
+    by_tma, by_function = torch.empty_like(src).view(-1), torch.empty_like(src).view(-1)
+    err = lib.zedo_swizzle_check(src.data_ptr(), rows, by_tma.data_ptr(),
+                                 by_function.data_ptr(), _stream(src.device))
+    if err != 0:
+        raise RuntimeError(f"swizzle check launch failed: CUDA error {err}")
+    return by_tma, by_function
+
+
 def fused_score_forward_split(x: torch.Tensor, packed: sk.PackedScoreWeights,
-                              vecs: torch.Tensor) -> torch.Tensor:
+                              vecs: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
     """One fused forward in one launch: x [B, C] f32 (C <= io_pad) -> [B, C]
-    f32.
+    f32. `cluster`: how many blocks share one weight stream by multicast (1,
+    2 or 4; the library's default when None).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -98,25 +245,21 @@ def fused_score_forward_split(x: torch.Tensor, packed: sk.PackedScoreWeights,
     mode = sk.gn_bf16(packed)
     io_pad, h = packed.w_pre.shape
     g = packed.group_size
-    smem, limit = lib.zedo_score_mlp_split_smem_bytes(h), lib.zedo_score_mlp_split_smem_limit()
-    if io_pad != CHUNK or h % CHUNK or CHUNK % g or g < 2 or smem > limit:
-        raise ValueError(
-            f"the split kernel does not take hidden {h} with GroupNorm groups of {g}: it "
-            f"needs hidden a multiple of {CHUNK}, groups dividing {CHUNK}, and its two "
-            f"half tiles' activations ({smem} bytes of shared memory at this width) "
-            f"within the {limit} bytes of a block")
+    tile = check_width(h, g)
+    cluster = _cluster(lib, cluster)
     b, c = x.shape
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    resid = torch.empty((b, h), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the f32 residual stream, [block][half][channel][row]
+    resid = torch.empty(grid_blocks(b, tile, cluster) * tile * h, dtype=torch.float32,
+                        device=x.device)
     err = lib.zedo_score_mlp_split_forward(
-        x.data_ptr(), b, c, io_pad, h, g, int(mode),
+        x.data_ptr(), b, c, io_pad, h, g, int(mode), cluster,
         packed.w_pre.data_ptr(), *(w.data_ptr() for w in packed.w_b),
         packed.w_post.data_ptr(), vecs.data_ptr(), packed.gn_scale.data_ptr(),
         packed.gn_bias.data_ptr(), packed.bias_post.data_ptr(), out.data_ptr(),
-        resid.data_ptr(), stream)
+        resid.data_ptr(), resid.numel(), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"split score kernel launch failed: CUDA error {err}")
     launch_counts["fused_score_forward_split"] += 1

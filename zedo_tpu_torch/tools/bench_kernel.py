@@ -9,12 +9,9 @@ Port of tools/bench_kernel.py (its kernel harness; the --probe variants,
 rejected TPU experiments, are not ported). Variants:
   * kernel gn=bf16|f32: `fused_score_forward` (csrc/score_mlp.cu) on the
     path its width takes, the wgmma kernel at the published width;
-  * kernel wmma gn=bf16|f32: the same with the library's wmma kernel forced,
-    the design the wgmma kernel replaced (on the CPU both are the one plain
-    version);
-  * with --split, split tile=32 gn=bf16|f32: `fused_score_forward_split`
-    (csrc/score_mlp_split.cu), its one row tile, and its max |diff| against
-    the kernel on 1024 rows;
+  * with --split, split tile=56 gn=bf16|f32: `fused_score_forward_split`
+    (csrc/score_mlp_split.cu), the 56 rows of its block, and its max |diff|
+    against the kernel on 1024 rows;
   * library chain bf16: bf16 torch.matmul calls with GroupNorm and SiLU as
     torch ops, the same function (a yardstick, never used by the port);
   * unfused bf16: score_mlp.apply_with_temb on bf16 weights.
@@ -108,11 +105,8 @@ def main(argv=None) -> dict:
         vecs = sk.step_vectors(p, temb).contiguous()
         results[f"kernel gn={gn_name}"] = step_ms(
             lambda h, p=p, v=vecs: sk.fused_score_forward(h, p, v), x, args.iters)
-        results[f"kernel wmma gn={gn_name}"] = step_ms(
-            lambda h, p=p, v=vecs: sk.fused_score_forward(h, p, v, _force_wmma=True), x,
-            args.iters)
         if args.split:
-            results[f"split tile={split.TILE_ROWS} gn={gn_name}"] = step_ms(
+            results[f"split tile={split.tile_rows(cfg.hidden_dim)} gn={gn_name}"] = step_ms(
                 lambda h, p=p, v=vecs: split.fused_score_forward_split(h, p, v), x, args.iters)
     vecs = sk.step_vectors(packed["bf16"], temb).contiguous()
     results["library chain bf16"] = step_ms(
