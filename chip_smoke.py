@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      started together; registers and spills of their kernels, kernel #1's
      resident blocks per SM, the clusters of kernel #2 the card holds, and
      the HGMMA (wgmma) and UTMALDG (TMA load; for kernel #2 also its
-     multicast form) opcodes in the SASS of both;
+     multicast form) opcodes in the SASS of both, and the instructions of
+     each kernel (kernel #2's tile loop has to fit the instruction cache);
   3. kernel #1 (fused_score_forward): its wgmma product alone against
      torch.matmul; then against its plain version at the published width
      (hidden 1024, embed 512, bf16 weights) in both GroupNorm statistics
@@ -101,9 +102,18 @@ PRODUCT_RTOL = 1e-5
 WIDTH_ROWS = 4096  # rows of the width checks of kernel #1
 WGMMA_WIDTHS, WMMA_WIDTHS = (256, 2048), (384, 768)
 # (hidden, GroupNorm groups) of kernel #2's checks: 4, 8, 12 and 16 channel
-# tiles a layer, groups of 8, 16, 32 (twice) and 64 channels
+# tiles a layer, groups of 8, 16, 32 (twice) and 64 channels (each group size
+# is an instantiation of the kernel; groups of 4, hidden 128, are held by
+# tests/test_torch_gpu.py at a few hundred rows: at 44,300 rows statistics
+# over 4 channels put both kernels 3e-2 to 5e-2 from the plain version, and
+# within 7e-3 of each other)
 SPLIT_WIDTHS = ((256, 32), (512, 32), (768, 24), (1024, 32), (1024, 16))
 BENCH_KERNEL_ITERS = 20
+# Instructions of one kernel #2 instantiation. Its per-tile loop runs 80 times
+# a block: with the loop unrolled eight times (0.8 MB of code a kernel) the
+# forward ran at the pace of instruction fetch, 2.0 ms against 1.45 ms at some
+# 2,400 instructions.
+MAX_SPLIT_INSTRUCTIONS = 4000
 
 
 def fail(msg: str) -> None:
@@ -206,18 +216,16 @@ def host_us(torch, fn, reps=40):
 
 
 def sass_counts(build, path):
-    """Occurrences of the opcodes that matter in a library's SASS."""
-    dump = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
-                           path], capture_output=True, text=True, timeout=300)
-    if dump.returncode != 0:
-        fail(f"cuobjdump failed: {dump.stderr[-2000:]}")
-    lines = dump.stdout.splitlines()
+    """Occurrences of the opcodes that matter in a library's SASS, examples
+    of them, and the instructions of each kernel."""
+    dump = build.sass(path)
+    lines = dump.splitlines()
     counts = {op: sum(op in line for line in lines) for op in ("HGMMA", "UTMALDG", "HMMA")}
     counts["UTMALDG multicast"] = sum("UTMALDG" in line and "MULTICAST" in line
                                       for line in lines)
     examples = [next((" ".join(line.split())[:150] for line in lines if all(w in line for w in op)),
                      None) for op in (("HGMMA",), ("UTMALDG",), ("UTMALDG", "MULTICAST"))]
-    return counts, [e for e in examples if e]
+    return counts, [e for e in examples if e], build.count_sass_instructions(dump)
 
 
 def phase_build(torch, build, sk, split):
@@ -248,12 +256,20 @@ def phase_build(torch, build, sk, split):
         fail(f"a cluster of the split kernel does not fit the card: {clusters}")
     for name, need in (("score_mlp", ("HGMMA", "UTMALDG")),
                        ("score_mlp_split", ("HGMMA", "UTMALDG", "UTMALDG multicast"))):
-        counts, examples = sass_counts(build, libs[name].path)
+        counts, examples, instructions = sass_counts(build, libs[name].path)
         log(f"SASS of libzedo_{name}.so: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
             f"UTMALDG (TMA load), {counts['UTMALDG multicast']} of them multicast, "
             f"{counts['HMMA']} HMMA (mma.sync of the wmma kernel, HGMMA included)")
         for e in examples:
             log(f"  e.g. {e}")
+        for label in ("wgmma_layer", "dense_layer", "score_mlp_split"):
+            sizes = [n for k, n in instructions.items() if label in k]
+            if sizes:
+                log(f"  {label}: {len(sizes)} kernels of {min(sizes)}-{max(sizes)} instructions")
+        largest = max((n for k, n in instructions.items() if "score_mlp_split" in k), default=0)
+        if name == "score_mlp_split" and not 0 < largest <= MAX_SPLIT_INSTRUCTIONS:
+            fail(f"a kernel of libzedo_{name}.so has {largest} instructions: its tile loop no "
+                 f"longer fits the instruction cache (limit {MAX_SPLIT_INSTRUCTIONS})")
         for op in need:
             if not counts[op]:
                 fail(f"the SASS of libzedo_{name}.so holds no {op}")

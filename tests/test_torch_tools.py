@@ -166,3 +166,62 @@ def test_tune_split_variants_still_match_the_kernel_source():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs the card"):
             tune_split.main(["--rows", "8"])
+
+
+def test_probe_tma_cases_fit_a_block():
+    """tools.probe_tma streams TMA boxes through a ring: every case's ring
+    fits the shared memory it asks for, that request keeps the intended
+    number of blocks on an SM (each block also takes 1 KB of the SM's 228
+    KB), the first case is the split kernel's stream (8 KB tiles, its ring at
+    hidden 1024), and without the card the tool raises."""
+    import torch
+
+    from zedo_tpu_torch.ops.kernels import score_kernel_split as split
+    from zedo_tpu_torch.tools import probe_tma
+
+    sm_bytes = 228 * 1024
+    for case in probe_tma.CASES:
+        need = 1024 + case.stages * case.box_bytes + 2 * 64 * 8
+        assert need <= case.smem_bytes() <= probe_tma.SMEM_LIMIT, case.label()
+        per_block = case.smem_bytes() + 1024
+        assert sm_bytes // per_block == case.blocks_per_sm, case.label()
+        assert case.box_rows % 8 == 0 and case.box_rows <= 256
+        assert (case.private_rows or probe_tma.SHARED_ROWS) % case.box_rows == 0
+    assert len({case.label() for case in probe_tma.CASES}) == len(probe_tma.CASES)
+    base = probe_tma.CASES[0]
+    assert base.box_bytes == split.TILE_BYTES and base.stages == split.ring_stages(1024)
+    assert probe_tma.SMEM_LIMIT == split.SMEM_LIMIT and probe_tma.SOURCE.exists()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs the card"):
+            probe_tma.main([])
+
+
+def test_count_sass_instructions():
+    """build.count_sass_instructions counts a kernel's instruction lines of a
+    `cuobjdump -sass` listing, not the second encoding line of each
+    instruction, the headers or the labels."""
+    from zedo_tpu_torch.ops.kernels import build
+
+    dump = """
+Fatbin elf code:
+================
+arch = sm_90a
+
+	code for sm_90a
+		Function : _Z6kernelPf
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+                                                                           /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                      /* 0x0000000000007919 */
+                                                                           /* 0x000e220000002100 */
+.L_x_0:
+        /*0020*/                   EXIT ;                                  /* 0x000000000000794d */
+                                                                           /* 0x000fea0003800000 */
+		..........
+		Function : _Z5otherv
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+                                                                           /* 0x000fea0003800000 */
+"""
+    assert build.count_sass_instructions(dump) == {"_Z6kernelPf": 3, "_Z5otherv": 1}
+    assert build.count_sass_instructions("") == {}

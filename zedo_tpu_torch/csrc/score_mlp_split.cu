@@ -17,14 +17,18 @@
 // only x, the output, the weights and the f32 residual stream cross device
 // memory, so no per-layer traffic floor stands above that bound. What stands
 // in its way is the weight stream: every block has to take in every weight,
-// 8.65 MB at H = 1024, for as many rows as it can keep on chip. Measured on
-// an H100, an SM takes in one 8 KB tile per ~400 cycles from L2 (some 20
-// bytes a cycle) whether it asks L2 itself or a neighbour's multicast brings
-// the tile, and however deep the ring: with the products and the residual
-// traffic taken out the forward still takes three quarters of its time. So
-// the kernel runs at the pace of its weight stream, 56 operations per byte
-// taken in where the six-launch kernel's 128 x 128 tiles have 64, and only
-// more rows per block would raise that.
+// 8.65 MB at H = 1024, for as many rows as it can keep on chip: 56 operations
+// per byte taken in where the six-launch kernel's 128 x 128 tiles have 64.
+// Measured on an H100 (tools/probe_tma.py, a kernel that only streams): one
+// thread starts at most one TMA box per ~190 ns whatever the box's size up to
+// 8 KB and however deep the ring; several threads of one block reach 65 GB/s
+// an SM on these tiles (64 rows of 128 bytes, 2 KB apart), whether the SM
+// asks L2 itself or a neighbour's multicast brings the tile. That is 0.8 ms
+// for the 52 MB an SM takes in at 44,300 rows, twice the operations bound.
+// With the stream at that pace (four producer threads) the consumers set the
+// time: a tile's products (16 steps of four small wgmma, each step with a
+// barrier wait, a commit and a wait_group) and its GroupNorm/SiLU/residual
+// take turns on two warpgroups, and the epilogue is the longer of the two.
 //
 // What the design does about it:
 //   * Rows on N, channels on M. wgmma's M is 64 rows, and a fused block's
@@ -42,11 +46,13 @@
 //     H36M solve, and a ring of 13. The price is registers: 8 tiles x 14
 //     pairs = 112 of a consumer's 232 (setmaxnreg; the producer's warpgroup
 //     gives up its own), which is what limits the width to 1024.
-//   * One weight ring: a producer thread keeps as many TMA tile loads in
-//     flight under the 128-byte swizzle as shared memory has room for,
-//     `full`/`empty` mbarriers per stage; the stream runs ahead across tile
-//     and layer boundaries (weights do not depend on activations). No
-//     block-wide sync in the main loop.
+//   * One weight ring: four producer threads (one in each warp of the
+//     producer's warpgroup, each owning every fourth stage: one thread alone
+//     starts a tile per ~240 ns here, and the forward is a fifth slower) keep
+//     as many TMA tile loads in flight under the 128-byte swizzle as shared
+//     memory has room for, `full`/`empty` mbarriers per stage; the stream
+//     runs ahead across tile and layer boundaries (weights do not depend on
+//     activations). No block-wide sync in the main loop.
 //   * The two halves of the TPU split are two consumer warpgroups that take
 //     the channel tiles of the stream in turn, each against all the rows (one
 //     read of the A tile serves every row): while one runs a tile's products
@@ -56,9 +62,14 @@
 //     tile can be two phases ahead of the barrier, and a parity wait then
 //     answers for the phase before last. Only at a layer's end do the two
 //     meet (a 256-thread barrier before and after the write-back).
-//   * The clusters (or blocks) start each layer at a different channel tile,
-//     so that at any moment they ask L2 for different lines. (Worth 15% of
-//     the forward while the ring held 4 tiles; 1-2% with a ring of 13.)
+//   * The tile's code is kept small. The loop over a layer's tiles is not
+//     unrolled, though a layer's output waits in registers that only constant
+//     indices reach: a tile's result goes to its place through a copy that is
+//     unrolled instead (`cur`, `held`). Unrolled eight times, with the
+//     GroupNorm group size a run-time value, the kernel was 0.8 MB of
+//     instructions and ran at the pace of instruction fetch: 2.0 ms where it
+//     now takes 1.45. The group size is a template argument for the same
+//     reason (the branches not taken were a third of the tile's code).
 //   * A cluster can multicast the weights: its blocks walk the same stream,
 //     each loads its share of a tile's k rows into every block's ring at
 //     once (`.multicast::cluster`), every block's `full` barrier expects the
@@ -77,8 +88,8 @@
 //     for groups of 32 or 64 channels one exchange between the warps through
 //     a few hundred bytes of shared memory. `vec`, `gn_scale` and `gn_bias`
 //     are per channel: two of each a thread and tile, loaded before the
-//     tile's products; the residual values are asked for while the tile's
-//     last products run.
+//     tile's products, as are the residual values (the thread that reads them
+//     wrote them itself, two layers before).
 //   * The write-back is the next layer's B operand: bf16 straight from
 //     registers at the address the 128-byte swizzle gives
 //     (hopper::swizzle128); nothing but this kernel writes that buffer.
@@ -91,19 +102,28 @@
 //     stored: only the post layer follows, and it reads the bf16 copy.
 //
 // tools/tune_split.py times this source with one thing changed at a time
-// (no products, no residual stream, release at once, one tile order).
+// (no products, no residual stream, parts of the epilogue, release at once,
+// one producer thread).
 //
-// Built, measured on an H100 and not kept (forward at 44,300 x 1024, this
-// design 1.95-2.0 ms): the two halves as two row halves of 24 rows with an
+// Built, measured on an H100 and not kept (forward at 44,300 x 1024; all but
+// the last three against this design at 1.95-2.0 ms, while the tile's code was
+// still unrolled and instruction fetch set the pace, so each may read
+// otherwise now): the two halves as two row halves of 24 rows with an
 // input and an output buffer each and both reading every weight tile (48
 // rows a block: 2.41 ms; at 32 rows a block and a ring of 8 or 12 tiles
 // slower still); 64 rows a block (as many blocks an SM as 56 rows at that row
 // count, each longer: a fifth slower); the two warpgroups' tiles with their
 // k blocks in turn in the stream (both compute at once, none finishes under
 // the other: a third slower); two sums a tile, even and odd k blocks (a
-// seventh slower); walking a tile's k blocks from a rotated start as well
-// (slower); a lone producer warp with setmaxnreg (faults: it takes a whole
-// warpgroup); streaming hints on the residual (no change).
+// seventh slower, and still a tenth slower with the tile's code small);
+// walking a tile's k blocks from a rotated start as well (slower); a lone
+// producer warp with setmaxnreg (faults: it takes a whole warpgroup);
+// streaming hints on the residual (no change); two or four weight tiles to
+// one commit group (a fifth and a third slower: the stages a consumer holds
+// are missing from the ring); releasing a stage two or three steps later (the
+// same); blocks that start each layer at a different channel tile (worth 15%
+// while the ring held 4 tiles, 2-3% slower with a ring of 13 and four
+// producers).
 //
 // SiLU is x * (0.5 * tanh(x / 2) + 0.5) with `tanh.approx.f32`
 // (hopper::silu), as in score_mlp.cu's wgmma kernel; the plain version uses
@@ -129,7 +149,8 @@ constexpr int TILE_BYTES = BK * TILE_M * 2;  // 8 KB
 constexpr int MIN_STAGES = 4;                // weight tiles in flight: at least, and
 constexpr int MAX_STAGES = 16;               // at most (what is left of shared memory)
 constexpr int CONSUMERS = 256;               // two warpgroups, each every other channel tile
-constexpr int THREADS = CONSUMERS + 128;     // and the producer's warpgroup (one thread works)
+constexpr int THREADS = CONSUMERS + 128;     // and the producer's warpgroup, of which
+constexpr int PRODUCERS = 4;                 // one thread a warp works
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // of a thread, after the launch's 168
 constexpr int ROWS = 56;                     // rows of a block: the N of wgmma_m64n56k16_tn
 constexpr int MAX_TILES = 16;                // channel tiles of a hidden layer: hidden <= 1024
@@ -182,7 +203,6 @@ struct SplitArgs {
   int H;                  // hidden width
   int n_gn;
   int out_cols, ldo;      // channels of the output layer that are stored
-  int group;              // channels of a GroupNorm group: 4, 8, 16, 32 or 64
   int cluster;            // blocks of a cluster: 1, 2 or 4
   int stages;             // of the weight ring
 };
@@ -190,13 +210,6 @@ struct SplitArgs {
 struct LayerShape {
   int kblocks, tiles;
 };
-
-// The channel tile at position i of a layer's stream for this block's
-// cluster: the clusters start at different tiles, so that at any moment they
-// ask L2 for different lines.
-__device__ __forceinline__ int tile_at(const SplitArgs& p, int i, int tiles) {
-  return (i + blockIdx.x / p.cluster) % tiles;
-}
 
 __device__ __forceinline__ LayerShape layer_shape(const SplitArgs& p, int l) {
   return {(l == 0 ? p.k0 : p.H) / BK,
@@ -212,10 +225,12 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-// The producer, one thread: every weight tile of the chain in order, this
-// block's share of each to all blocks of the cluster.
+// Producer thread q of PRODUCERS: every weight tile of the chain in order,
+// this block's share of each to all blocks of the cluster. A stage belongs to
+// one thread (stage % PRODUCERS), which loads every tile that lands there, so
+// no thread can be a phase ahead of another at a stage's barriers.
 __device__ __forceinline__ void produce(const Maps& maps, const SplitArgs& p, uint32_t ring,
-                                        uint32_t full, uint32_t empty, uint32_t rank) {
+                                        uint32_t full, uint32_t empty, uint32_t rank, int q) {
   const int share = BK / p.cluster;  // k rows of a tile that this block loads
   const uint16_t mask = static_cast<uint16_t>((1u << p.cluster) - 1);
   int stage = 0;
@@ -224,21 +239,22 @@ __device__ __forceinline__ void produce(const Maps& maps, const SplitArgs& p, ui
     const LayerShape ls = layer_shape(p, l);
     const CUtensorMap* map = &maps.m[l];
     for (int i = 0; i < ls.tiles; ++i) {
-      const int t = tile_at(p, i, ls.tiles);
       for (int kb = 0; kb < ls.kblocks; ++kb) {
-        // the warpgroup that reads this stage has released it in every block
-        mbar_wait(empty + 8 * stage, phase ^ 1);
-        // The stage's `full` barrier of the warpgroup that takes this tile
-        // (the tiles in turn). One barrier for both would let a warpgroup
-        // that passes over the other's tile run two phases ahead of the
-        // barrier, where a parity wait answers for the phase before last.
-        const uint32_t bar = full + 8 * ((i & 1) * MAX_STAGES + stage);
-        mbar_arrive_expect_tx(bar, TILE_BYTES);
-        const uint32_t dst = ring + stage * TILE_BYTES + rank * share * (TILE_M * 2);
-        if (p.cluster == 1)
-          tma_load_2d(dst, map, bar, t * TILE_M, kb * BK);
-        else
-          tma_load_2d_multicast(dst, map, bar, t * TILE_M, kb * BK + rank * share, mask);
+        if (stage % PRODUCERS == q) {
+          // the warpgroup that reads this stage has released it in every block
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          // The stage's `full` barrier of the warpgroup that takes this tile
+          // (the tiles in turn). One barrier for both would let a warpgroup
+          // that passes over the other's tile run two phases ahead of the
+          // barrier, where a parity wait answers for the phase before last.
+          const uint32_t bar = full + 8 * ((i & 1) * MAX_STAGES + stage);
+          mbar_arrive_expect_tx(bar, TILE_BYTES);
+          const uint32_t dst = ring + stage * TILE_BYTES + rank * share * (TILE_M * 2);
+          if (p.cluster == 1)
+            tma_load_2d(dst, map, bar, i * TILE_M, kb * BK);
+          else
+            tma_load_2d_multicast(dst, map, bar, i * TILE_M, kb * BK + rank * share, mask);
+        }
         if (++stage == p.stages) {
           stage = 0;
           phase ^= 1;
@@ -260,8 +276,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The consumers: the block's rows through every layer, the two warpgroups
 // taking the channel tiles of the stream in turn. GN: GroupNorm statistics
-// mode (1 bf16, 0 f32).
-template <int GN>
+// mode (1 bf16, 0 f32); G: channels of a GroupNorm group (4, 8, 16, 32 or 64;
+// at compile time: the branches not taken are a third of the tile's code).
+template <int GN, int G>
 __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint32_t act,
                                         unsigned char* act_ptr, float* xch, uint32_t full,
                                         uint32_t empty, int tid) {
@@ -294,8 +311,7 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
 #pragma unroll
     for (int e = 0; e < 2; ++e) dst[b][e] = swizzle128((rq + e) * 128 + (ca + 8 * b) * 2);
   float* const resid = p.resid + (size_t)blockIdx.x * p.H * ROWS + rq;
-  const float inv_group = 1.f / p.group;  // a power of two: exact, in bf16 too
-  const int G = p.group;
+  constexpr float inv_group = 1.f / G;  // a power of two: exact, in bf16 too
   float* const xch_wg = xch + wg * 2 * 4 * ROWS;  // this warpgroup's two exchange buffers
 
   // A layer's output waits here, as bf16 pairs (rows rq, rq + 1), until every
@@ -325,14 +341,17 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
     const float* const scale = p.gn_scale + (size_t)l * p.H;
     const float* const bias = p.gn_bias + (size_t)l * p.H;
 
-#pragma unroll
+    // Not unrolled: with eight copies of this body the kernel was 0.8 MB of
+    // instructions, which no instruction cache holds; `held` stays in
+    // registers all the same (see `cur` below).
+#pragma unroll 1
     for (int ii = 0; ii < MAX_TILES / 2; ++ii) {
       // positions 2 ii and 2 ii + 1 of the stream: one for each warpgroup,
       // which passes over the other's stages
       if (wg == 1 && 2 * ii < ls.tiles) skip(ls.kblocks);
       if (2 * ii + wg < ls.tiles) {
-        const int t = tile_at(p, 2 * ii + wg, ls.tiles);
-        const int ch = t * TILE_M + ca;  // this thread's channels: ch and ch + 8
+        // channel tile 2 ii + wg; this thread's channels: ch and ch + 8
+        const int ch = (2 * ii + wg) * TILE_M + ca;
         // per-channel vectors, asked for before the products so that they
         // arrive under them
         float va = 0.f, vb = 0.f, sa = 0.f, sb = 0.f, ba = 0.f, bb = 0.f;
@@ -344,6 +363,19 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
         } else {
           if (ch < p.out_cols) va = __ldg(p.bias + ch);
           if (ch + 8 < p.out_cols) vb = __ldg(p.bias + ch + 8);
+        }
+
+        // and the residual values (this thread wrote them itself, two layers
+        // before)
+        float* const res_a = resid + (size_t)ch * ROWS;
+        float* const res_b = resid + (size_t)(ch + 8) * ROWS;
+        float2 pa[NJ], pb[NJ];
+        if (add_resid) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            pa[j] = *reinterpret_cast<const float2*>(res_a + 8 * j);
+            pb[j] = *reinterpret_cast<const float2*>(res_b + 8 * j);
+          }
         }
 
         float acc[REGS];
@@ -361,25 +393,16 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
             wgmma_m64n56k16_tn(acc, da + ((k * 2048) >> 4), db + ((k * 32) >> 4),
                                (kb | k) != 0);
           wgmma_commit();
-          // the products of the step before have finished: release its stage
-          // (releasing each stage at once, wgmma.wait_group 0, is 1-2% slower)
+          // The products of the step before have finished: release its stage.
+          // (At once, wgmma.wait_group 0, or two or three steps later: the
+          // same. Two or four tiles to a step and a commit: a fifth and a
+          // third slower, the stages they hold are missing from the ring.)
           if (prev >= 0) {
             wgmma_wait<1>();
             release(prev);
           }
           prev = stage;
           if (++stage == p.stages) stage = 0;
-        }
-        // the residual values, asked for while the last products run
-        float* const res_a = resid + (size_t)ch * ROWS;
-        float* const res_b = resid + (size_t)(ch + 8) * ROWS;
-        float2 pa[NJ], pb[NJ];
-        if (add_resid) {
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            pa[j] = *reinterpret_cast<const float2*>(res_a + 8 * j);
-            pb[j] = *reinterpret_cast<const float2*>(res_b + 8 * j);
-          }
         }
         wgmma_wait<0>();
         if (prev >= 0) release(prev);
@@ -401,7 +424,8 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
         } else {
           // GroupNorm (given the sums of squares of the rows 8j + rq and + 1,
           // for channel a's group and channel b's), SiLU and the residual of
-          // this thread's four values of block j; the result waits in `held`
+          // this thread's four values of block j; the result goes to `cur`
+          uint32_t cur[NJ][2];
           auto finish = [&](int j, float ssa0, float ssa1, float ssb0, float ssb1) {
             auto rstd = [&](float ss) {
               const float r = rsqrtf(ss * inv_group + GN_EPS);
@@ -416,8 +440,8 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
               *reinterpret_cast<float2*>(res_a + 8 * j) = make_float2(ya0, ya1);
               *reinterpret_cast<float2*>(res_b + 8 * j) = make_float2(yb0, yb1);
             }
-            held[ii][j][0] = pack_bf16(ya0, ya1);
-            held[ii][j][1] = pack_bf16(yb0, yb1);
+            cur[j][0] = pack_bf16(ya0, ya1);
+            cur[j][1] = pack_bf16(yb0, yb1);
           };
 
 #pragma unroll
@@ -492,6 +516,15 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
               finish(j, s[0], s[1], s[2], s[3]);
             }
           }
+          // The tile's result waits in held[ii]. Written with every index a
+          // constant (one of these copies runs), so that `held` is registers
+          // and not local memory.
+#pragma unroll
+          for (int k = 0; k < MAX_TILES / 2; ++k)
+            if (k == ii) {
+#pragma unroll
+              for (int j = 0; j < NJ; ++j) held[k][j][0] = cur[j][0], held[k][j][1] = cur[j][1];
+            }
         }
       }
       if (wg == 0 && 2 * ii + 1 < ls.tiles) skip(ls.kblocks);
@@ -505,8 +538,7 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
 #pragma unroll
     for (int ii = 0; ii < MAX_TILES / 2; ++ii)
       if (2 * ii + wg < ls.tiles) {
-        unsigned char* const out_tile =
-            act_ptr + tile_at(p, 2 * ii + wg, ls.tiles) * kblock_bytes;
+        unsigned char* const out_tile = act_ptr + (2 * ii + wg) * kblock_bytes;
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -522,7 +554,7 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
   }
 }
 
-template <int GN>
+template <int GN, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 score_mlp_split(const __grid_constant__ Maps maps, const SplitArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -553,12 +585,13 @@ score_mlp_split(const __grid_constant__ Maps maps, const SplitArgs p) {
   // still write its ring or arrive at its barriers.
   if (tid >= CONSUMERS) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (tid == CONSUMERS) produce(maps, p, ring, full, empty, cluster_ctarank());
+    if ((tid & 31) == 0 && (tid - CONSUMERS) / 32 < PRODUCERS)
+      produce(maps, p, ring, full, empty, cluster_ctarank(), (tid - CONSUMERS) / 32);
     __syncwarp();
     cluster_sync();
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<GN>(p, ring, ring + ring_bytes, ring_ptr + ring_bytes, xch, full, empty, tid);
+    consume<GN, G>(p, ring, ring + ring_bytes, ring_ptr + ring_bytes, xch, full, empty, tid);
     cluster_sync();
   }
 }
@@ -596,8 +629,21 @@ __global__ void swizzle_check(const __grid_constant__ CUtensorMap map,
 
 using Kernel = void (*)(const Maps, const SplitArgs);
 
-Kernel kernel_for(int gn_bf16) {
-  return gn_bf16 ? score_mlp_split<1> : score_mlp_split<0>;
+template <int GN>
+Kernel kernel_for_group(int group) {
+  switch (group) {
+    case 4: return score_mlp_split<GN, 4>;
+    case 8: return score_mlp_split<GN, 8>;
+    case 16: return score_mlp_split<GN, 16>;
+    case 32: return score_mlp_split<GN, 32>;
+    case 64: return score_mlp_split<GN, 64>;
+    default: return nullptr;
+  }
+}
+
+// null for a group size the kernel is not built for
+Kernel kernel_for(int gn_bf16, int group) {
+  return gn_bf16 ? kernel_for_group<1>(group) : kernel_for_group<0>(group);
 }
 
 bool cluster_ok(int cluster) { return cluster == 1 || cluster == 2 || cluster == 4; }
@@ -626,10 +672,11 @@ cudaLaunchConfig_t launch_config(int blocks, int smem, cudaStream_t stream,
 
 // p.H, p.M, p.cluster and the weights `w` ([w_rows[l], w_cols[l]] bf16) of
 // the n_gn + 1 layers: encodes (or finds) the maps and launches.
-cudaError_t launch(SplitArgs p, int gn_bf16, const void* const* w, const int* w_rows,
+cudaError_t launch(SplitArgs p, int gn_bf16, int group, const void* const* w, const int* w_rows,
                    const int* w_cols, size_t resid_floats, cudaStream_t stream) {
-  if (tile_rows(p.H) == 0 || !cluster_ok(p.cluster)) return cudaErrorInvalidValue;
-  const Kernel kernel = kernel_for(gn_bf16);
+  const Kernel kernel = kernel_for(gn_bf16, group);
+  if (tile_rows(p.H) == 0 || !cluster_ok(p.cluster) || kernel == nullptr)
+    return cudaErrorInvalidValue;
   const int blocks = grid_blocks(p.M, p.cluster);
   if (resid_floats < (size_t)blocks * ROWS * p.H * (p.n_gn > 0)) return cudaErrorInvalidValue;
   Maps maps;
@@ -666,7 +713,7 @@ int zedo_score_mlp_split_default_cluster() { return DEFAULT_CLUSTER; }
 // a time (cudaOccupancyMaxActiveClusters); 0 on error.
 int zedo_score_mlp_split_max_clusters(int h, int cluster) {
   if (tile_rows(h) == 0 || !cluster_ok(cluster)) return 0;
-  const Kernel kernel = kernel_for(1);
+  const Kernel kernel = kernel_for(1, 32);
   const int smem = smem_bytes(h, ring_stages(h));
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
       cudaSuccess)
@@ -698,19 +745,19 @@ int zedo_score_mlp_split_forward(const float* x, int m, int c, int io_pad, int h
                                  const float* bias_post, float* out, float* resid,
                                  long long resid_floats, void* stream) {
   if (m <= 0) return 0;
-  const bool group_ok = group == 4 || group == 8 || group == 16 || group == 32 || group == 64;
-  if (h % 128 != 0 || io_pad % BK != 0 || c <= 0 || c > io_pad || !group_ok || h % group != 0)
+  if (h % 128 != 0 || io_pad % BK != 0 || c <= 0 || c > io_pad || group <= 0 ||
+      h % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs p{};
   p.x = x; p.out = out; p.resid = resid;
   p.vecs = vecs; p.gn_scale = gn_scale; p.gn_bias = gn_bias; p.bias = bias_post;
   p.M = m; p.c = c; p.k0 = (c + BK - 1) / BK * BK; p.H = h; p.n_gn = N_LAYERS - 1;
-  p.out_cols = c; p.ldo = c; p.group = group;
+  p.out_cols = c; p.ldo = c;
   p.cluster = cluster == 0 ? DEFAULT_CLUSTER : cluster;
   const void* w[N_LAYERS] = {w_pre, w_b1, w_b2, w_b3, w_b4, w_post};
   const int w_rows[N_LAYERS] = {io_pad, h, h, h, h, h};
   const int w_cols[N_LAYERS] = {h, h, h, h, h, io_pad};
-  return static_cast<int>(launch(p, gn_bf16, w, w_rows, w_cols,
+  return static_cast<int>(launch(p, gn_bf16, group, w, w_rows, w_cols,
                                  static_cast<size_t>(resid_floats),
                                  static_cast<cudaStream_t>(stream)));
 }
@@ -728,10 +775,10 @@ int zedo_score_mlp_split_product(const float* a, int m, int k, const void* w, in
   SplitArgs p{};
   p.x = a; p.out = out; p.bias = zero_bias;
   p.M = m; p.c = k; p.k0 = k; p.H = k; p.n_gn = 0;
-  p.out_cols = n; p.ldo = n; p.group = 32;
+  p.out_cols = n; p.ldo = n;
   p.cluster = cluster == 0 ? DEFAULT_CLUSTER : cluster;
   const void* ws[1] = {w};
-  return static_cast<int>(launch(p, 1, ws, &k, &n, 0, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(p, 1, 32, ws, &k, &n, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // src [rows, 64] bf16 (rows a multiple of 8 up to 128) as one TMA box under

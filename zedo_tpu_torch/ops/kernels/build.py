@@ -112,6 +112,32 @@ def resources(ptxas: str) -> dict:
     return out
 
 
+def sass(path) -> str:
+    """The SASS of a built library (cuobjdump of the CUDA toolkit)."""
+    dump = subprocess.run([os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
+                           str(path)], capture_output=True, text=True, timeout=300)
+    if dump.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {path}:\n{dump.stderr[-2000:]}")
+    return dump.stdout
+
+
+def count_sass_instructions(dump: str) -> dict:
+    """{kernel name: instructions} of a `cuobjdump -sass` listing. A kernel
+    whose hot loop outgrows the instruction cache pays for it on every
+    pass."""
+    out, name = {}, None
+    for line in dump.splitlines():
+        words = line.split()
+        if len(words) >= 3 and words[0] == "Function" and words[1] == ":":
+            name = words[2]
+            out[name] = 0
+        elif (name is not None and len(words) > 1 and words[0].startswith("/*")
+              and words[0].endswith("*/") and len(words[0]) > 4
+              and not words[1].startswith("/*")):
+            out[name] += 1
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if need be."""
     return build((name,))[name].lib

@@ -6,9 +6,10 @@ TPU experiment that ran each row tile of the fused score kernel as two
 half-tile chains so that one half's GroupNorm/SiLU overlaps the other
 half's products. The kernel is `csrc/score_mlp_split.cu` (see its header
 for the design and what bounds it): `wgmma` with the rows on N, one TMA
-weight ring, two warpgroups that take the channel tiles in turn (one's
-GroupNorm/SiLU under the other's products), a layer's output held in
-registers, optionally a cluster whose blocks multicast the weights to each
+weight ring fed by four producer threads, two warpgroups that take the
+channel tiles in turn (one's GroupNorm/SiLU under the other's products), a
+layer's output held in registers, one instantiation per GroupNorm mode and
+group size, optionally a cluster whose blocks multicast the weights to each
 other. It computes exactly the function of
 `score_kernel.fused_score_forward` on the same `PackedScoreWeights`, in both
 GroupNorm statistics modes.
@@ -251,7 +252,7 @@ def fused_score_forward_split(x: torch.Tensor, packed: sk.PackedScoreWeights,
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    # the f32 residual stream, [block][half][channel][row]
+    # the f32 residual stream, [block][channel][row]
     resid = torch.empty(grid_blocks(b, tile, cluster) * tile * h, dtype=torch.float32,
                         device=x.device)
     err = lib.zedo_score_mlp_split_forward(

@@ -2,6 +2,7 @@
 the card: what each part of its design costs or buys at the production batch.
 
     python -m zedo_tpu_torch.tools.tune_split [--rows 44300] [--reps 20]
+        [--clusters 1 2 4]
 
 Each variant is a copy of csrc/score_mlp_split.cu with one thing changed (a
 piece of its text replaced; the tool fails if the source no longer holds the
@@ -16,10 +17,24 @@ the published width (hidden 1024, bf16 weights, GN-bf16):
   * no residual: the products without the residual stream;
   * release at once: a ring stage released as soon as its products have
     finished (wgmma.wait_group 0) instead of one step later;
-  * one tile order: every block walks a layer's channel tiles from tile 0
-    (all blocks ask L2 for the same lines at the same time).
-Only "as built" and the last two compute the kernel's function; the tool
-holds those against the plain version.
+  * residual asked for late: the f32 residual values loaded while a tile's
+    last products run instead of before its first;
+  * no shuffles / no exchange / no SiLU, and all of them with no residual:
+    the epilogue without its reduction across lanes, without the warps'
+    exchange through shared memory, without SiLU (wrong outputs: what each
+    part of the epilogue costs);
+  * half the products: two of a tile's four wgmma;
+  * one producer thread: one thread starts every tile's load instead of one
+    thread in each warp of the producer's warpgroup.
+Only "as built", "release at once", "residual asked for late" and "one
+producer thread" compute the kernel's function; the tool holds those
+against the plain version. It prints the registers, spills and instructions
+of the kernels as built (a kernel whose tile loop outgrows the instruction
+cache runs at the pace of instruction fetch). `--clusters` times every
+variant with clusters of each of these sizes multicasting the weights (the
+library's default alone when not given): "no products, no residual" by
+cluster size is the weight stream's own pace when L2 is read once for two
+or four blocks.
 """
 from __future__ import annotations
 
@@ -44,6 +59,24 @@ _NO_RESIDUAL = [("const bool add_resid = !last && l >= 2 && l % 2 == 0;",
                  "const bool add_resid = false;"),
                 ("const bool store_resid = !last && l % 2 == 0 && l + 2 < p.n_gn;",
                  "const bool store_resid = false;")]
+_NO_SHUFFLES = ("""                v += __shfl_xor_sync(0xffffffffu, v, 4);
+                v += __shfl_xor_sync(0xffffffffu, v, 8);
+                v += __shfl_xor_sync(0xffffffffu, v, 16);
+""", "")
+_NO_EXCHANGE = ("if (G >= 32) {", "if (false) {")
+_NO_SILU = [(f"float {y} = silu(", f"float {y} = (") for y in ("ya0", "ya1", "yb0", "yb1")]
+_HALF_PRODUCTS = (_NO_PRODUCTS[0], _NO_PRODUCTS[0].replace("BK / 16", "BK / 32"))
+_RESIDUAL_LOADS = """        if (add_resid) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            pa[j] = *reinterpret_cast<const float2*>(res_a + 8 * j);
+            pb[j] = *reinterpret_cast<const float2*>(res_b + 8 * j);
+          }
+        }
+"""
+_WAIT_ALL = "        wgmma_wait<0>();\n        if (prev >= 0) release(prev);\n"
+_LATE_RESIDUAL = [(_RESIDUAL_LOADS, ""), (_WAIT_ALL, _RESIDUAL_LOADS + _WAIT_ALL)]
+_ONE_PRODUCER = ("constexpr int PRODUCERS = 4;", "constexpr int PRODUCERS = 1;")
 # name -> (text replacements, whether the variant still computes the function)
 VARIANTS = {
     "as built": ([], True),
@@ -53,7 +86,14 @@ VARIANTS = {
     "release at once": ([("          if (prev >= 0) {\n            wgmma_wait<1>();\n"
                           "            release(prev);\n          }\n          prev = stage;",
                           "          wgmma_wait<0>();\n          release(stage);")], True),
-    "one tile order": ([("return (i + blockIdx.x / p.cluster) % tiles;", "return i;")], True),
+    "residual asked for late": (_LATE_RESIDUAL, True),
+    "no shuffles": ([_NO_SHUFFLES], False),
+    "no shuffles, no exchange": ([_NO_SHUFFLES, _NO_EXCHANGE], False),
+    "no SiLU": (_NO_SILU, False),
+    "no shuffles, no exchange, no SiLU, no residual":
+        ([_NO_SHUFFLES, _NO_EXCHANGE, *_NO_SILU, *_NO_RESIDUAL], False),
+    "half the products": ([_HALF_PRODUCTS], False),
+    "one producer thread": ([_ONE_PRODUCER], True),
 }
 
 
@@ -77,6 +117,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=44300)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--clusters", type=int, nargs="+", choices=split.CLUSTERS, default=[None],
+                    help="blocks that share one weight stream (default: the library's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("tune_split builds and times CUDA kernels: it needs the card")
@@ -107,30 +149,38 @@ def main(argv=None) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{stderr}")
         libs[name] = ctypes.CDLL(str(so))
+        if name == "as built":
+            res = build.resources(stderr)
+            print(f"as built: {len(res)} kernels, registers "
+                  f"{sorted({regs for regs, _ in res.values()})}, spill bytes "
+                  f"{sum(spill for _, spill in res.values())}; instructions a kernel "
+                  f"{sorted(build.count_sass_instructions(build.sass(so)).values())}", flush=True)
 
     # in turns on one card: every variant once, then once more in reverse order
-    results = {name: [] for name in libs}
-    for name in [*libs, *reversed(libs)]:
+    cases = [(name, cluster) for cluster in args.clusters for name in libs]
+    results = {case: [] for case in cases}
+    for name, cluster in [*cases, *reversed(cases)]:
         split.bind_library(libs[name])
-        got = split.fused_score_forward_split(x, packed, vecs)
+        got = split.fused_score_forward_split(x, packed, vecs, cluster=cluster)
         torch.cuda.synchronize()
         if VARIANTS[name][1]:
             err = (got - want).abs().max().item()
             if not err <= 2e-2:
-                raise RuntimeError(f"variant {name!r} disagrees with the plain version: {err}")
+                raise RuntimeError(f"variant {name!r} (cluster {cluster}) disagrees with the "
+                                   f"plain version: {err}")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.reps):
-            split.fused_score_forward_split(x, packed, vecs)
+            split.fused_score_forward_split(x, packed, vecs, cluster=cluster)
         end.record()
         end.synchronize()
-        results[name].append(start.elapsed_time(end) / args.reps)
+        results[name, cluster].append(start.elapsed_time(end) / args.reps)
     split.bind_library(None)
 
-    table = Table(["variant", "ms/forward (first turn)", "(second turn)",
+    table = Table(["variant", "cluster", "ms/forward (first turn)", "(second turn)",
                    "computes the function"])
-    for name, (first, second) in results.items():
-        table.add_row([name, f"{first:.4f}", f"{second:.4f}",
+    for (name, cluster), (first, second) in results.items():
+        table.add_row([name, cluster or "default", f"{first:.4f}", f"{second:.4f}",
                        "yes" if VARIANTS[name][1] else "no"])
     print(table, flush=True)
     print(f"({args.rows} rows x hidden {cfg.hidden_dim}, {torch.cuda.get_device_name(dev)})",
