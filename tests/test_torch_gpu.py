@@ -93,9 +93,7 @@ def test_split_kernel_matches_plain_version_and_kernel(cuda_device, hidden, grou
     """Kernel #2 against its plain version and against kernel #1 in both
     GroupNorm modes: at 2 to 16 channel tiles a layer (an odd count a
     warpgroup at hidden 768), at groups of 4, 8, 16, 32 and 64 channels, on a
-    full grid and on ragged row counts (1, R - 1, R + 1, and 2R + 1, whose
-    third tile leaves a ragged last cluster), alone and in clusters of 2 and
-    4."""
+    full grid and on ragged row counts (1, R - 1, R + 1 and 2R + 1)."""
     packed, vecs = _packed(cuda_device, hidden, gn, groups=groups)
     tile = tsplit.tile_rows(hidden)
     gen = torch.Generator().manual_seed(2)
@@ -103,29 +101,27 @@ def test_split_kernel_matches_plain_version_and_kernel(cuda_device, hidden, grou
         x = torch.randn(n, 51, generator=gen).to(cuda_device)
         want = tsplit.fused_score_forward_split_reference(x, packed, vecs)
         one = tsk.fused_score_forward(x, packed, vecs)
-        for cluster in (None, 1, 2, 4):
-            before = tsplit.launch_counts["fused_score_forward_split"]
-            got = tsplit.fused_score_forward_split(x, packed, vecs, cluster=cluster)
-            torch.cuda.synchronize()
-            assert tsplit.launch_counts["fused_score_forward_split"] == before + 1
-            assert (got - want).abs().max().item() < TOL, (n, cluster)
-            assert (got - one).abs().max().item() < TOL, (n, cluster)
+        before = tsplit.launch_counts["fused_score_forward_split"]
+        got = tsplit.fused_score_forward_split(x, packed, vecs)
+        torch.cuda.synchronize()
+        assert tsplit.launch_counts["fused_score_forward_split"] == before + 1
+        assert (got - want).abs().max().item() < TOL, n
+        assert (got - one).abs().max().item() < TOL, n
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [1, 2, 4])
 @pytest.mark.parametrize("m,k,n", [(64, 64, 128), (100, 512, 64), (300, 1024, 256),
                                    (57, 1024, 1024), (1, 192, 64)])
-def test_split_product_matches_matmul(cuda_device, m, k, n, cluster):
+def test_split_product_matches_matmul(cuda_device, m, k, n):
     """Kernel #2's transposed product alone (the weight tile as the MN-major
-    A operand from the TMA ring, multicast in a cluster; the rows as the
-    K-major B operand written through the swizzle function) against
+    A operand from the TMA ring, the rows as the K-major B operand written
+    through the swizzle function) against
     torch.matmul: exact bf16 products, f32 sums in another order."""
     gen = torch.Generator().manual_seed(5)
     a = torch.randn(m, k, generator=gen).to(cuda_device).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen).to(cuda_device).to(torch.bfloat16)
     want = a.float() @ w.float()
-    got = tsplit.split_product(a, w, cluster=cluster)
+    got = tsplit.split_product(a, w)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
@@ -159,7 +155,6 @@ def test_split_tile_rows_mirror_the_library(cuda_device):
             assert lib.zedo_score_mlp_split_smem_bytes(hidden) == tsplit.smem_bytes(
                 hidden, stages) <= tsplit.SMEM_LIMIT
     assert lib.zedo_score_mlp_split_smem_limit() == tsplit.SMEM_LIMIT
-    assert lib.zedo_score_mlp_split_default_cluster() in tsplit.CLUSTERS
 
 
 @pytest.mark.gpu

@@ -121,8 +121,8 @@ def test_split_plain_version_ragged_rows_and_launch_count():
                                              (1024, 512, "f32")])
 def test_split_plain_version_at_kernel_tile_and_ragged_rows(hidden, embed, gn):
     """The plain version at the row tile the kernel takes (56 rows) on row
-    counts that leave a ragged tile (1, R - 1, R + 1) and a ragged last
-    cluster (2R + 1: three tiles), against the JAX `_kernel_split` at that
+    counts that leave a ragged tile (1, R - 1, R + 1, and 2R + 1: three
+    tiles), against the JAX `_kernel_split` at that
     tile in interpret mode and the fused Pallas kernel. Same tolerance as
     above: the same products on the same bf16 operands, f32 sums in another
     order."""
@@ -138,7 +138,7 @@ def test_split_plain_version_at_kernel_tile_and_ragged_rows(hidden, embed, gn):
     full = tsplit.fused_score_forward_split_reference(torch.from_numpy(x), tpacked,
                                                       tvecs).numpy()
     for rows in (1, tile - 1, tile + 1, 2 * tile + 1):
-        assert tsplit.grid_blocks(rows, tile, 2) * tile >= rows
+        assert 0 <= tsplit.grid_blocks(rows, tile) * tile - rows < tile
         got = tsplit.fused_score_forward_split(torch.from_numpy(x[:rows]), tpacked, tvecs).numpy()
         assert got.shape == (rows, 51) and np.isfinite(got).all()
         assert _median_rel(got, want_split[:rows]) < 0.02, rows
@@ -176,12 +176,11 @@ def test_widths_the_split_kernel_does_not_take_raise(hidden, group, why):
         tsplit.check_width(hidden, group)
 
 
-def test_grid_blocks_rounds_to_whole_clusters():
-    assert tsplit.grid_blocks(44300, 56, 1) == 792  # six blocks for each of 132 SMs
-    assert tsplit.grid_blocks(44300, 56, 2) == 792
-    assert tsplit.grid_blocks(44300, 56, 4) == 792
-    assert tsplit.grid_blocks(1, 56, 4) == 4
-    assert tsplit.grid_blocks(113, 56, 2) == 4  # three tiles: a ragged last cluster
+def test_grid_blocks_are_the_row_tiles():
+    assert tsplit.grid_blocks(44300, 56) == 792  # six blocks for each of 132 SMs
+    assert tsplit.grid_blocks(1, 56) == 1
+    assert tsplit.grid_blocks(56, 56) == 1
+    assert tsplit.grid_blocks(113, 56) == 3  # a ragged last tile
 
 
 @pytest.mark.parametrize("rows", [8, 24, 56, 64])

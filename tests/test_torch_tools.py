@@ -149,25 +149,6 @@ def test_table_and_logger_match_the_jax_package(tmp_path):
     assert (out_dir, tb_dir) == (j_out, j_tb) and os.path.isdir(tb_dir)
 
 
-def test_tune_split_variants_still_match_the_kernel_source():
-    """tools.tune_split times copies of csrc/score_mlp_split.cu with a piece
-    of text replaced; every replacement must still find its text exactly
-    once, and every variant differs from the source (it needs the card to
-    build and time them)."""
-    import torch
-
-    from zedo_tpu_torch.tools import tune_split
-
-    sources = tune_split.variant_sources()
-    assert set(sources) == set(tune_split.VARIANTS)
-    original = tune_split.SOURCE.read_text()
-    for name, text in sources.items():
-        assert (text == original) == (name == "as built"), name
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs the card"):
-            tune_split.main(["--rows", "8"])
-
-
 def test_probe_tma_cases_fit_a_block():
     """tools.probe_tma streams TMA boxes through a ring: every case's ring
     fits the shared memory it asks for, that request keeps the intended

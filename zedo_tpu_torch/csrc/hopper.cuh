@@ -1,6 +1,5 @@
 // Building blocks of the Hopper (sm_90a) kernels: mbarriers, TMA tile loads
-// through tensor maps (plain and multicast to the blocks of a cluster),
-// cluster barriers, wgmma (warpgroup matrix multiply) on bf16 operands in
+// through tensor maps, wgmma (warpgroup matrix multiply) on bf16 operands in
 // 128-byte-swizzled shared memory, the swizzle's address function, the
 // epilogues' shared arithmetic, and the host calls that encode and cache
 // tensor maps. Inline PTX only; no library is linked beyond the CUDA runtime
@@ -54,21 +53,6 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---- clusters ---------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster; orders shared-memory writes
-// (barrier initialisation) before, against remote accesses after
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // ---- registers --------------------------------------------------------------
 // A whole warpgroup (four warps) gives up registers (a producer that only
 // starts copies) or takes more than the launch gave it (consumers), in a
@@ -102,19 +86,6 @@ __device__ __forceinline__ void mbar_init_fence() {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// one arrival at the barrier at the same shared-memory offset in block
-// `cta` of this cluster (its own rank included)
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
 }
 
 // one arrival that also announces `bytes` of TMA traffic to wait for
@@ -158,19 +129,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// The same box to the same shared-memory offset of every block of the
-// cluster whose bit is set in `cta_mask`; each of those blocks' barrier at
-// the offset of `bar` is told the box's bytes.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(cta_mask)
       : "memory");
 }
 
@@ -320,21 +278,13 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, uint64_t rows, u
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// 0 turns the cache below off (every call encodes), for timing the
-// encodings' share of a wrapper's host time
-inline bool& map_cache_enabled() {
-  static bool on = true;
-  return on;
-}
-
 // encode_bf16_map through a cache keyed by (base, rows, cols, box): a map is
-// a pure function of its key, so a hit can never be stale. The weights' maps
-// stay for the life of the packed weights; the activations' maps turn over
-// with the allocator's addresses, so the table is small and replaces its
-// entries in turn.
+// a pure function of its key, so a hit can never be stale. For the weights'
+// maps, which stay for the life of the packed weights; maps of buffers that
+// are allocated anew each forward are encoded directly. The table is small
+// and replaces its entries in turn.
 inline bool cached_bf16_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
                             uint32_t box_rows, uint32_t box_cols) {
-  if (!map_cache_enabled()) return encode_bf16_map(map, base, rows, cols, box_rows, box_cols);
   struct Slot {
     const void* base;
     uint64_t rows, cols;

@@ -691,11 +691,13 @@ cudaError_t launch_group(const CUtensorMap& a, const CUtensorMap& b, const Layer
   }
 }
 
-// One layer: a [M, K] bf16 (row stride lda = p.lda), w [w_rows, N] bf16.
+// One layer: a [M, K] bf16 (row stride lda = p.lda), w [w_rows, N] bf16. The
+// weights' map comes from the cache; the activations are allocated anew each
+// forward, so their map is encoded here.
 template <int MODE>
 cudaError_t layer(const LayerArgs& p, int w_rows, cudaStream_t s) {
   CUtensorMap map_a, map_b;
-  if (!cached_bf16_map(&map_a, p.a, p.M, p.lda, BM, BK) ||
+  if (!encode_bf16_map(&map_a, p.a, p.M, p.lda, BM, BK) ||
       !cached_bf16_map(&map_b, p.w, w_rows, p.N, BK, 64))
     return cudaErrorNotSupported;  // libcuda refused the map or lacks the call
   if constexpr (MODE == BIAS_OUT)
@@ -720,10 +722,6 @@ extern "C" {
 // Narrowest and widest column tiles the wmma kernel is built for.
 int zedo_score_mlp_min_column_tile() { return 16 * MIN_NF; }
 int zedo_score_mlp_max_column_tile() { return 16 * MAX_NF; }
-
-// 0 makes every layer encode its tensor maps anew, 1 (the default) takes them
-// from the cache; for timing the wrapper's host time with and without it.
-void zedo_score_mlp_map_cache(int on) { hopper::map_cache_enabled() = on != 0; }
 
 // 1 when a forward at this width takes the wgmma kernel, 0 the wmma kernel.
 int zedo_score_mlp_takes_wgmma(int h, int group, int tile) { return wg::takes(h, group, tile); }

@@ -22,8 +22,7 @@
 // Measured on an H100 (tools/probe_tma.py, a kernel that only streams): one
 // thread starts at most one TMA box per ~190 ns whatever the box's size up to
 // 8 KB and however deep the ring; several threads of one block reach 65 GB/s
-// an SM on these tiles (64 rows of 128 bytes, 2 KB apart), whether the SM
-// asks L2 itself or a neighbour's multicast brings the tile. That is 0.8 ms
+// an SM on these tiles (64 rows of 128 bytes, 2 KB apart). That is 0.8 ms
 // for the 52 MB an SM takes in at 44,300 rows, twice the operations bound.
 // With the stream at that pace (four producer threads) the consumers set the
 // time: a tile's products (16 steps of four small wgmma, each step with a
@@ -70,17 +69,6 @@
 //     instructions and ran at the pace of instruction fetch: 2.0 ms where it
 //     now takes 1.45. The group size is a template argument for the same
 //     reason (the branches not taken were a third of the tile's code).
-//   * A cluster can multicast the weights: its blocks walk the same stream,
-//     each loads its share of a tile's k rows into every block's ring at
-//     once (`.multicast::cluster`), every block's `full` barrier expects the
-//     whole tile, and a stage is refilled only when the warps that read it
-//     have released it in all blocks (remote mbarrier arrives, with the
-//     default `.release.cta` ordering: a `.release.cluster` arrive per warp
-//     and stage cost more than the rest of the kernel together). Row tiles
-//     past M in a ragged last cluster take part (they compute on zero rows
-//     and store nothing). Clusters of 2 and 4 halve and quarter the L2 reads
-//     and are no faster (the card holds 30 clusters of 4: 120 of its 132
-//     SMs), so a launch takes clusters of 1 unless the caller asks.
 //   * GroupNorm, SiLU and the residual run on the accumulators in
 //     registers. With channels on M a thread of warp w, lane l holds channels
 //     16w + l/4 and + 8 of the tile at rows 8j + 2(l%4) and + 1: a group's sum
@@ -101,14 +89,19 @@
 //     quad fills a 32-byte sector. The second residual block's sum is not
 //     stored: only the post layer follows, and it reads the bf16 copy.
 //
-// tools/tune_split.py times this source with one thing changed at a time
-// (no products, no residual stream, parts of the epilogue, release at once,
-// one producer thread).
-//
-// Built, measured on an H100 and not kept (forward at 44,300 x 1024; all but
-// the last three against this design at 1.95-2.0 ms, while the tile's code was
-// still unrolled and instruction fetch set the pace, so each may read
-// otherwise now): the two halves as two row halves of 24 rows with an
+// Built, measured on an H100 and not kept (forward at 44,300 x 1024). A
+// cluster of 2 or 4 blocks that walk the same weight stream, each loading
+// its share of a tile's k rows into every block's ring at once
+// (`.multicast::cluster`), a stage refilled only when the warps that read it
+// have released it in all blocks (remote mbarrier arrives with the default
+// `.release.cta` ordering: a `.release.cluster` arrive per warp and stage cost
+// more than the rest of the kernel together): 1.523 and 1.794 ms against 1.498
+// without. Multicast halves and quarters the L2 reads and buys nothing, since
+// L2 is not the limit (and the card holds only 30 clusters of 4: 120 of its
+// 132 SMs). The others (all but the last three against this design at
+// 1.95-2.0 ms, while the tile's code was still unrolled and instruction fetch
+// set the pace, so each may read otherwise now): the two halves as two row
+// halves of 24 rows with an
 // input and an output buffer each and both reading every weight tile (48
 // rows a block: 2.41 ms; at 32 rows a block and a ring of 8 or 12 tiles
 // slower still); 64 rows a block (as many blocks an SM as 56 rows at that row
@@ -154,7 +147,6 @@ constexpr int PRODUCERS = 4;                 // one thread a warp works
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // of a thread, after the launch's 168
 constexpr int ROWS = 56;                     // rows of a block: the N of wgmma_m64n56k16_tn
 constexpr int MAX_TILES = 16;                // channel tiles of a hidden layer: hidden <= 1024
-constexpr int DEFAULT_CLUSTER = 1;  // a cluster bought nothing on an H100 (see above)
 constexpr int N_LAYERS = 6;
 constexpr float GN_EPS = 1e-5f;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of an H100 block
@@ -185,7 +177,7 @@ constexpr int ring_stages(int h) {
 }
 
 struct Maps {
-  CUtensorMap m[N_LAYERS];  // the layers' weights, boxes of [BK / cluster, TILE_M]
+  CUtensorMap m[N_LAYERS];  // the layers' weights, boxes of [BK, TILE_M]
 };
 
 // A chain of n_gn GroupNorm layers and one output layer. The forward has
@@ -203,7 +195,6 @@ struct SplitArgs {
   int H;                  // hidden width
   int n_gn;
   int out_cols, ldo;      // channels of the output layer that are stored
-  int cluster;            // blocks of a cluster: 1, 2 or 4
   int stages;             // of the weight ring
 };
 
@@ -225,14 +216,12 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-// Producer thread q of PRODUCERS: every weight tile of the chain in order,
-// this block's share of each to all blocks of the cluster. A stage belongs to
-// one thread (stage % PRODUCERS), which loads every tile that lands there, so
-// no thread can be a phase ahead of another at a stage's barriers.
+// Producer thread q of PRODUCERS: every weight tile of the chain in order. A
+// stage belongs to one thread (stage % PRODUCERS), which loads every tile
+// that lands there, so no thread can be a phase ahead of another at a
+// stage's barriers.
 __device__ __forceinline__ void produce(const Maps& maps, const SplitArgs& p, uint32_t ring,
-                                        uint32_t full, uint32_t empty, uint32_t rank, int q) {
-  const int share = BK / p.cluster;  // k rows of a tile that this block loads
-  const uint16_t mask = static_cast<uint16_t>((1u << p.cluster) - 1);
+                                        uint32_t full, uint32_t empty, int q) {
   int stage = 0;
   uint32_t phase = 0;
   for (int l = 0; l <= p.n_gn; ++l) {
@@ -241,7 +230,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const SplitArgs& p, ui
     for (int i = 0; i < ls.tiles; ++i) {
       for (int kb = 0; kb < ls.kblocks; ++kb) {
         if (stage % PRODUCERS == q) {
-          // the warpgroup that reads this stage has released it in every block
+          // the warpgroup that read this stage has released it
           mbar_wait(empty + 8 * stage, phase ^ 1);
           // The stage's `full` barrier of the warpgroup that takes this tile
           // (the tiles in turn). One barrier for both would let a warpgroup
@@ -249,11 +238,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const SplitArgs& p, ui
           // barrier, where a parity wait answers for the phase before last.
           const uint32_t bar = full + 8 * ((i & 1) * MAX_STAGES + stage);
           mbar_arrive_expect_tx(bar, TILE_BYTES);
-          const uint32_t dst = ring + stage * TILE_BYTES + rank * share * (TILE_M * 2);
-          if (p.cluster == 1)
-            tma_load_2d(dst, map, bar, i * TILE_M, kb * BK);
-          else
-            tma_load_2d_multicast(dst, map, bar, i * TILE_M, kb * BK + rank * share, mask);
+          tma_load_2d(ring + stage * TILE_BYTES, map, bar, i * TILE_M, kb * BK);
         }
         if (++stage == p.stages) {
           stage = 0;
@@ -325,7 +310,7 @@ __device__ __forceinline__ void consume(const SplitArgs& p, uint32_t ring, uint3
   uint32_t parity = 0;
   const uint32_t my_full = full + 8 * wg * MAX_STAGES;
   auto release = [&](int s) {
-    if (lane < p.cluster) mbar_arrive_cluster(empty + 8 * s, lane);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   };
   // pass over the stages of a tile that the other warpgroup reads
   auto skip = [&](int n) { stage = (stage + n) % p.stages; };
@@ -572,27 +557,22 @@ score_mlp_split(const __grid_constant__ Maps maps, const SplitArgs p) {
     for (int s = 0; s < p.stages; ++s) {
       mbar_init(full + 8 * s, 1);  // the producer's arrive.expect_tx
       mbar_init(full + 8 * (MAX_STAGES + s), 1);
-      mbar_init(empty + 8 * s, 4 * p.cluster);  // the warps of one warpgroup, in every block
+      mbar_init(empty + 8 * s, 4);  // the warps of one warpgroup
     }
     mbar_init_fence();
   }
-  // no block arrives at another's barriers before they are initialised
-  cluster_sync();
+  __syncthreads();
 
   // Twelve warps are launched with 168 registers each. The producer's
   // warpgroup needs few; the consumers hold a layer's output in 128 and take
-  // what the producer gives up. At the end no block leaves while another may
-  // still write its ring or arrive at its barriers.
+  // what the producer gives up.
   if (tid >= CONSUMERS) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if ((tid & 31) == 0 && (tid - CONSUMERS) / 32 < PRODUCERS)
-      produce(maps, p, ring, full, empty, cluster_ctarank(), (tid - CONSUMERS) / 32);
-    __syncwarp();
-    cluster_sync();
+      produce(maps, p, ring, full, empty, (tid - CONSUMERS) / 32);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     consume<GN, G>(p, ring, ring + ring_bytes, ring_ptr + ring_bytes, xch, full, empty, tid);
-    cluster_sync();
   }
 }
 
@@ -646,42 +626,17 @@ Kernel kernel_for(int gn_bf16, int group) {
   return gn_bf16 ? kernel_for_group<1>(group) : kernel_for_group<0>(group);
 }
 
-bool cluster_ok(int cluster) { return cluster == 1 || cluster == 2 || cluster == 4; }
-
-// blocks of a launch: the row tiles, rounded up to whole clusters
-int grid_blocks(int m, int cluster) {
-  const int tiles = (m + ROWS - 1) / ROWS;
-  return (tiles + cluster - 1) / cluster * cluster;
-}
-
-cudaLaunchConfig_t launch_config(int blocks, int smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr, int cluster) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// p.H, p.M, p.cluster and the weights `w` ([w_rows[l], w_cols[l]] bf16) of
-// the n_gn + 1 layers: encodes (or finds) the maps and launches.
+// p.H, p.M and the weights `w` ([w_rows[l], w_cols[l]] bf16) of the n_gn + 1
+// layers: encodes (or finds) the maps and launches.
 cudaError_t launch(SplitArgs p, int gn_bf16, int group, const void* const* w, const int* w_rows,
                    const int* w_cols, size_t resid_floats, cudaStream_t stream) {
   const Kernel kernel = kernel_for(gn_bf16, group);
-  if (tile_rows(p.H) == 0 || !cluster_ok(p.cluster) || kernel == nullptr)
-    return cudaErrorInvalidValue;
-  const int blocks = grid_blocks(p.M, p.cluster);
+  if (tile_rows(p.H) == 0 || kernel == nullptr) return cudaErrorInvalidValue;
+  const int blocks = (p.M + ROWS - 1) / ROWS;  // the row tiles
   if (resid_floats < (size_t)blocks * ROWS * p.H * (p.n_gn > 0)) return cudaErrorInvalidValue;
   Maps maps;
   for (int l = 0; l <= p.n_gn; ++l)
-    if (!cached_bf16_map(&maps.m[l], w[l], w_rows[l], w_cols[l], BK / p.cluster, TILE_M))
+    if (!cached_bf16_map(&maps.m[l], w[l], w_rows[l], w_cols[l], BK, TILE_M))
       return cudaErrorNotSupported;  // libcuda refused the map or lacks the call
   for (int l = p.n_gn + 1; l < N_LAYERS; ++l) maps.m[l] = maps.m[0];
   p.stages = ring_stages(p.H);
@@ -689,9 +644,8 @@ cudaError_t launch(SplitArgs p, int gn_bf16, int group, const void* const* w, co
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(blocks, smem, stream, &attr, p.cluster);
-  return cudaLaunchKernelEx(&cfg, kernel, maps, p);
+  kernel<<<blocks, THREADS, smem, stream>>>(maps, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -706,39 +660,15 @@ int zedo_score_mlp_split_stages(int h) { return ring_stages(h); }
 int zedo_score_mlp_split_smem_bytes(int h) { return smem_bytes(h, ring_stages(h)); }
 int zedo_score_mlp_split_smem_limit() { return SMEM_LIMIT; }
 
-// Blocks of a cluster when the caller names none.
-int zedo_score_mlp_split_default_cluster() { return DEFAULT_CLUSTER; }
-
-// Clusters of `cluster` blocks of the forward's kernel that the card holds at
-// a time (cudaOccupancyMaxActiveClusters); 0 on error.
-int zedo_score_mlp_split_max_clusters(int h, int cluster) {
-  if (tile_rows(h) == 0 || !cluster_ok(cluster)) return 0;
-  const Kernel kernel = kernel_for(1, 32);
-  const int smem = smem_bytes(h, ring_stages(h));
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-      cudaSuccess)
-    return 0;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(cluster, smem, nullptr, &attr, cluster);
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) return 0;
-  return clusters;
-}
-
-// 0 makes every launch encode its tensor maps anew, 1 (the default) takes
-// them from the cache; for timing the wrapper's host time with and without.
-void zedo_score_mlp_split_map_cache(int on) { hopper::map_cache_enabled() = on != 0; }
-
 // One fused forward in one launch: x [m, c] f32 -> out [m, c] f32, c <=
 // io_pad. Weights bf16 input-major: w_pre [io_pad, h], w_b* [h, h], w_post
 // [h, io_pad]; vecs, gn_scale, gn_bias [5, h] f32; bias_post [io_pad] f32;
 // resid: f32 scratch of resid_floats >= blocks * tile_rows(h) * h values,
-// blocks being the row tiles rounded up to whole clusters. tile_rows(h) > 0;
-// group 4, 8, 16, 32 or 64; gn_bf16: GroupNorm statistics mode (1 bf16, 0
-// f32); cluster: 1, 2 or 4 blocks share the weight stream, 0 for the default.
-// Returns the launch's CUDA error, or 0.
+// blocks being the row tiles. tile_rows(h) > 0; group 4, 8, 16, 32 or 64;
+// gn_bf16: GroupNorm statistics mode (1 bf16, 0 f32). Returns the launch's
+// CUDA error, or 0.
 int zedo_score_mlp_split_forward(const float* x, int m, int c, int io_pad, int h, int group,
-                                 int gn_bf16, int cluster, const void* w_pre, const void* w_b1,
+                                 int gn_bf16, const void* w_pre, const void* w_b1,
                                  const void* w_b2, const void* w_b3, const void* w_b4,
                                  const void* w_post, const float* vecs,
                                  const float* gn_scale, const float* gn_bias,
@@ -753,7 +683,6 @@ int zedo_score_mlp_split_forward(const float* x, int m, int c, int io_pad, int h
   p.vecs = vecs; p.gn_scale = gn_scale; p.gn_bias = gn_bias; p.bias = bias_post;
   p.M = m; p.c = c; p.k0 = (c + BK - 1) / BK * BK; p.H = h; p.n_gn = N_LAYERS - 1;
   p.out_cols = c; p.ldo = c;
-  p.cluster = cluster == 0 ? DEFAULT_CLUSTER : cluster;
   const void* w[N_LAYERS] = {w_pre, w_b1, w_b2, w_b3, w_b4, w_post};
   const int w_rows[N_LAYERS] = {io_pad, h, h, h, h, h};
   const int w_cols[N_LAYERS] = {h, h, h, h, h, io_pad};
@@ -768,15 +697,13 @@ int zedo_score_mlp_split_forward(const float* x, int m, int c, int io_pad, int h
 // a matrix product. k and n multiples of 64 up to 1024; zero_bias [n] f32
 // zeros.
 int zedo_score_mlp_split_product(const float* a, int m, int k, const void* w, int n,
-                                 const float* zero_bias, float* out, int cluster,
-                                 void* stream) {
+                                 const float* zero_bias, float* out, void* stream) {
   if (m <= 0) return 0;
   if (n % TILE_M != 0 || n / TILE_M > MAX_TILES) return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs p{};
   p.x = a; p.out = out; p.bias = zero_bias;
   p.M = m; p.c = k; p.k0 = k; p.H = k; p.n_gn = 0;
   p.out_cols = n; p.ldo = n;
-  p.cluster = cluster == 0 ? DEFAULT_CLUSTER : cluster;
   const void* ws[1] = {w};
   return static_cast<int>(launch(p, 1, 32, ws, &k, &n, 0, static_cast<cudaStream_t>(stream)));
 }

@@ -196,8 +196,6 @@ def load_library() -> ctypes.CDLL:
         lib.zedo_score_mlp_takes_wgmma.argtypes = [i32] * 3
         lib.zedo_score_mlp_padded_input.argtypes = [i32]
         lib.zedo_score_mlp_wgmma_blocks_per_sm.argtypes = []
-        lib.zedo_score_mlp_map_cache.argtypes = [i32]
-        lib.zedo_score_mlp_map_cache.restype = None
         for f in (lib.zedo_score_mlp_forward, lib.zedo_score_mlp_product,
                   lib.zedo_score_mlp_wgmma_blocks_per_sm,
                   lib.zedo_score_mlp_min_column_tile, lib.zedo_score_mlp_max_column_tile,
@@ -301,13 +299,6 @@ def wgmma_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"wgmma product launch failed: CUDA error {err}")
     return out
-
-
-def set_map_cache(on: bool) -> None:
-    """Turn the library's cache of tensor maps off or on (on by default):
-    with it off every layer of the wgmma path encodes its two maps anew.
-    For timing the wrapper's host time with and without the cache."""
-    load_library().zedo_score_mlp_map_cache(int(on))
 
 
 def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,

@@ -9,8 +9,7 @@ for the design and what bounds it): `wgmma` with the rows on N, one TMA
 weight ring fed by four producer threads, two warpgroups that take the
 channel tiles in turn (one's GroupNorm/SiLU under the other's products), a
 layer's output held in registers, one instantiation per GroupNorm mode and
-group size, optionally a cluster whose blocks multicast the weights to each
-other. It computes exactly the function of
+group size. It computes exactly the function of
 `score_kernel.fused_score_forward` on the same `PackedScoreWeights`, in both
 GroupNorm statistics modes.
 
@@ -35,8 +34,13 @@ TILE_BYTES = 8192  # a tile of the weight ring: [64 k, 64 channels] bf16
 MIN_STAGES, MAX_STAGES = 4, 16  # tiles of the ring: at least, at most
 TILE_ROWS = 56  # rows of a block: the N of the kernel's wgmma
 MAX_HIDDEN = 1024  # a layer's output waits in registers: 16 channel tiles of 64
-GROUPS = (4, 8, 16, 32, 64)  # channels of a GroupNorm group the kernel reduces
-CLUSTERS = (1, 2, 4)  # blocks that may share one weight stream
+# Channels of a GroupNorm group the kernel reduces. With groups of 4 the
+# function itself is ill-conditioned on large batches (some row has a group
+# whose variance is near the epsilon, and 1 / sqrt(var + eps) multiplies every
+# rounding difference of the layer's input): there the kernels and the plain
+# version differ by what the order of an f32 sum moves the plain version
+# itself, 5e-2 on 44,300 rows (chip_smoke.check_groups_of_4).
+GROUPS = (4, 8, 16, 32, 64)
 
 # launches of the CUDA kernel; the wrapper adds one per launch
 launch_counts = {"fused_score_forward_split": 0}
@@ -59,7 +63,9 @@ def tile_rows(hidden: int) -> int:
     """Rows of the kernel's block at this width, 0 for a width it does not
     take: 56 rows where the hidden width is a multiple of 64 up to 1024 (a
     layer's output waits in registers, 8 channel tiles of 64 a warpgroup) and
-    the layer's input fits a block beside a ring of MIN_STAGES tiles."""
+    the layer's input fits a block beside a ring of MIN_STAGES tiles. The
+    forward needs a multiple of 128 (`check_width`); the product alone
+    (`split_product`) takes every such width."""
     fits = smem_bytes(hidden, MIN_STAGES) <= SMEM_LIMIT
     return TILE_ROWS if hidden % 64 == 0 and hidden <= MAX_HIDDEN and fits else 0
 
@@ -82,9 +88,9 @@ def check_width(hidden: int, group: int) -> int:
     return tile
 
 
-def grid_blocks(rows: int, tile: int, cluster: int) -> int:
-    """Blocks of a launch: the row tiles, rounded up to whole clusters."""
-    return math.ceil(math.ceil(rows / tile) / cluster) * cluster
+def grid_blocks(rows: int, tile: int) -> int:
+    """Blocks of a launch: the row tiles."""
+    return math.ceil(rows / tile)
 
 
 def swizzle128(offset: int) -> int:
@@ -128,64 +134,37 @@ _lib = None
 def load_library() -> ctypes.CDLL:
     """The kernel's library, built at first use. Raises when CUDA or nvcc is
     missing; there is no fallback."""
-    if _lib is None:
-        bind_library(build.load("score_mlp_split"))
-    return _lib
-
-
-def bind_library(lib: ctypes.CDLL | None) -> None:
-    """Make `lib` the library the wrappers call: the one `load_library`
-    builds, or a variant of it (tools.tune_split). None: back to the one
-    `load_library` builds, at its next call."""
     global _lib
-    if lib is None:
-        _lib = None
-        return
+    if _lib is not None:
+        return _lib
+    lib = build.load("score_mlp_split")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.zedo_score_mlp_split_forward.argtypes = (
-        [ptr] + [i32] * 7 + [ptr] * 12 + [ctypes.c_longlong, ptr])
-    lib.zedo_score_mlp_split_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr]
+        [ptr] + [i32] * 6 + [ptr] * 12 + [ctypes.c_longlong, ptr])
+    lib.zedo_score_mlp_split_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, ptr]
     lib.zedo_swizzle_check.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.zedo_score_mlp_split_tile_rows.argtypes = [i32]
     lib.zedo_score_mlp_split_smem_bytes.argtypes = [i32]
     lib.zedo_score_mlp_split_stages.argtypes = [i32]
     lib.zedo_score_mlp_split_smem_limit.argtypes = []
-    lib.zedo_score_mlp_split_default_cluster.argtypes = []
-    lib.zedo_score_mlp_split_max_clusters.argtypes = [i32, i32]
-    lib.zedo_score_mlp_split_map_cache.argtypes = [i32]
-    lib.zedo_score_mlp_split_map_cache.restype = None
     for f in (lib.zedo_score_mlp_split_forward, lib.zedo_score_mlp_split_product,
               lib.zedo_swizzle_check, lib.zedo_score_mlp_split_tile_rows,
               lib.zedo_score_mlp_split_smem_bytes, lib.zedo_score_mlp_split_stages,
-              lib.zedo_score_mlp_split_smem_limit,
-              lib.zedo_score_mlp_split_default_cluster,
-              lib.zedo_score_mlp_split_max_clusters):
+              lib.zedo_score_mlp_split_smem_limit):
         f.restype = i32
     for hidden in range(64, 2049, 64):
         if lib.zedo_score_mlp_split_tile_rows(hidden) != tile_rows(hidden):
             raise RuntimeError(f"the split kernel's row tile at hidden {hidden} differs "
                                f"from score_kernel_split.tile_rows")
     _lib = lib
-
-
-def set_map_cache(on: bool) -> None:
-    """Turn the library's cache of tensor maps off or on (on by default);
-    for timing the wrapper's host time with and without it."""
-    load_library().zedo_score_mlp_split_map_cache(int(on))
+    return lib
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _cluster(lib, cluster) -> int:
-    cluster = cluster or lib.zedo_score_mlp_split_default_cluster()
-    if cluster not in CLUSTERS:
-        raise ValueError(f"cluster: want one of {CLUSTERS}, got {cluster}")
-    return cluster
-
-
-def split_product(a: torch.Tensor, w: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+def split_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [M, K] bf16 @ w [K, N] bf16 -> [M, N] f32 through the split kernel's
     transposed product alone (weight tiles as the MN-major A operand from
     the TMA ring, the rows as B written through the swizzle function, the
@@ -203,8 +182,7 @@ def split_product(a: torch.Tensor, w: torch.Tensor, cluster: int | None = None) 
     bias = torch.zeros(n, dtype=torch.float32, device=a.device)
     a32 = a.float()
     err = lib.zedo_score_mlp_split_product(a32.data_ptr(), m, k, w.data_ptr(), n,
-                                           bias.data_ptr(), out.data_ptr(),
-                                           _cluster(lib, cluster), _stream(a.device))
+                                           bias.data_ptr(), out.data_ptr(), _stream(a.device))
     if err != 0:
         raise RuntimeError(f"split product launch failed: CUDA error {err}")
     return out
@@ -230,10 +208,9 @@ def swizzle_images(src: torch.Tensor):
 
 
 def fused_score_forward_split(x: torch.Tensor, packed: sk.PackedScoreWeights,
-                              vecs: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+                              vecs: torch.Tensor) -> torch.Tensor:
     """One fused forward in one launch: x [B, C] f32 (C <= io_pad) -> [B, C]
-    f32. `cluster`: how many blocks share one weight stream by multicast (1,
-    2 or 4; the library's default when None).
+    f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -247,16 +224,15 @@ def fused_score_forward_split(x: torch.Tensor, packed: sk.PackedScoreWeights,
     io_pad, h = packed.w_pre.shape
     g = packed.group_size
     tile = check_width(h, g)
-    cluster = _cluster(lib, cluster)
     b, c = x.shape
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
     # the f32 residual stream, [block][channel][row]
-    resid = torch.empty(grid_blocks(b, tile, cluster) * tile * h, dtype=torch.float32,
+    resid = torch.empty(grid_blocks(b, tile) * tile * h, dtype=torch.float32,
                         device=x.device)
     err = lib.zedo_score_mlp_split_forward(
-        x.data_ptr(), b, c, io_pad, h, g, int(mode), cluster,
+        x.data_ptr(), b, c, io_pad, h, g, int(mode),
         packed.w_pre.data_ptr(), *(w.data_ptr() for w in packed.w_b),
         packed.w_post.data_ptr(), vecs.data_ptr(), packed.gn_scale.data_ptr(),
         packed.gn_bias.data_ptr(), packed.bias_post.data_ptr(), out.data_ptr(),
