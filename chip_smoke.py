@@ -39,7 +39,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (kernel #1, GroupNorm bf16) and bf16 with gn_fp32, best-hypothesis
      MPJPE against the JAX package's value for the same scenes, schedule
      and mode;
-  7. the kernel tooling path, each entry point with the launch counts set to
+  7. the batch CLI, each run with the launch counts set to 0 before it and
+     checked after it: run.opt_main --config h36m --hypo 50 --gt
+     --strict_batch --dtype auto on a synthetic H36M workspace of 886 poses
+     (published width, seeded weights, full schedule), with kernel #1 on
+     every OIL forward, solve and evaluation seconds apart and a profiled
+     run counting the kernel's CUDA launches; the trained fixture through the
+     CLI in fp32 and bf16 against the JAX CLI's P1/P2; run.inference --eval
+     on a wild custom_data.npz;
+  8. the kernel tooling path, each entry point with the launch counts set to
      0 before it and checked after it: tools.bench_kernel --split (the path
      of kernel #2), tools.validate_dtype, bench (the headline at 886 x 50)
      and bench --trained against the JAX package's values.
@@ -55,8 +63,10 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,6 +85,18 @@ JAX_FIXTURE_MPJPE_MM = {"fp32": 26.472286224365234, "bf16": 27.058399200439453,
                         "bf16_gn_fp32": 27.057533264160156}
 FIXTURE_TOL_MM = 1.0
 FIXTURE_SCENES, FIXTURE_IPO, FIXTURE_OIL = 24, 200, 300
+
+# (P1, P2) in mm of the JAX package's batch CLI on the CPU for the trained
+# fixture's 24 scenes (tests/fixtures/trained/data/h36m/h36m_test.pkl) with
+# h36m_cluster2.npy at the full 500 IPO / 1000 OIL schedule: zedo_tpu.run.
+# opt_main's build_dataset, run_pipeline and eval_multi on the h36m config
+# with model.hidden_dim 256, embed_dim 128, ZeDO.sample 1, ZeDO.batch 24,
+# --gt --strict_batch, --dtype fp32 and bf16 (on the CPU XLA's unfused bf16
+# model). Recomputed and held against these values by
+# `python -m pytest tests/test_torch_cli.py::test_chip_smoke_cli_reference`.
+CLI_FIXTURE_HYPO = 2
+JAX_CLI_FIXTURE_MM = {"fp32": (35.91820411384106, 8.938108881314596),
+                      "bf16": (36.44946527977785, 8.888261237492165)}
 
 # zedo_tpu/bench_trained.run_trained_bounds(n=16, s=50) on the CPU (full
 # 500 IPO / 1000 OIL schedule; bf16 there is XLA's unfused bf16 model), the
@@ -95,6 +117,7 @@ PEAK_BYTES = 3.35e12
 
 HEADLINE_N, HEADLINE_S = 886, 50
 N_REQUESTS = 3
+WILD_N = 64  # poses of the wild inference run
 KERNEL_TOL = 2e-2  # max |kernel - plain|: same bf16 operands, f32 sums in another order
 # max |wgmma product - torch.matmul| / max |product|: exact bf16 x bf16
 # products, f32 sums in another order
@@ -637,6 +660,154 @@ def phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev):
             fail(f"trained fixture {name}: MPJPE {mm} vs {ref}")
 
 
+def write_workspace(torch, tsm, root, n, s, n_wild):
+    """A synthetic workspace in the layout of tests/test_cli_e2e.py::workdir:
+    data/h36m/h36m_test.pkl (n poses over the H36M actions), data/wild/
+    custom_data.npz (n_wild poses), clusters/h36m_cluster{s,1}.npy and
+    checkpoint/checkpoint_full.pth (seeded weights at the published width,
+    the reference's .pth layout). Returns the common CLI arguments."""
+    rng = np.random.RandomState(0)
+    fx, cx = 1145.0, 512.0
+
+    def scenes(count):
+        pose = rng.randn(count, 17, 3) * 250.0  # mm, root-relative
+        pose -= pose[:, 0:1]
+        cam = pose + np.array([200.0, 0.0, 4500.0])
+        img = np.concatenate([cam[..., :2] / cam[..., 2:] * fx + cx, cam[..., 2:]], axis=-1)
+        return cam, img
+
+    cam, img = scenes(n)
+    items = [{"joint_3d_camera": cam[i], "joint_3d_image": img[i],
+              "camera_param": {"fx": np.array(fx), "fy": np.array(fx), "cx": np.array(cx),
+                               "cy": np.array(cx)},
+              "image_path": f"{i}.jpg", "action": 2 + i % 15} for i in range(n)]
+    os.makedirs(os.path.join(root, "data", "h36m"))
+    with open(os.path.join(root, "data", "h36m", "h36m_test.pkl"), "wb") as f:
+        pickle.dump(items, f)
+    cam, img = scenes(n_wild)
+    k = np.zeros((n_wild, 3, 3), np.float32)
+    k[:, 0, 0] = k[:, 1, 1] = fx
+    k[:, 0, 2] = k[:, 1, 2] = cx
+    k[:, 2, 2] = 1.0
+    os.makedirs(os.path.join(root, "data", "wild"))
+    np.savez(os.path.join(root, "data", "wild", "custom_data.npz"),
+             keypoints_2d=np.concatenate([img[..., :2], np.ones((n_wild, 17, 1))], -1)
+             .astype(np.float32),
+             keypoints_3d=((cam - cam[:, :1]) / 1000.0).astype(np.float32), K=k)
+    os.makedirs(os.path.join(root, "clusters"))
+    clusters = (rng.randn(s, 17, 3) * 0.25).astype(np.float32)
+    np.save(os.path.join(root, "clusters", f"h36m_cluster{s}.npy"), clusters)
+    np.save(os.path.join(root, "clusters", "h36m_cluster1.npy"), clusters[:1])
+    os.makedirs(os.path.join(root, "checkpoint"))
+    params = tsm.init_params(torch.Generator().manual_seed(0), tsm.ScoreMLPConfig(),
+                             device="cpu")
+
+    def flat(tree, prefix=""):
+        for key, v in tree.items():
+            yield from flat(v, f"{prefix}{key}.") if isinstance(v, dict) else [(prefix + key, v)]
+
+    torch.save({"epoch": 0, "model_state_dict": {"module." + key: v for key, v in flat(params)},
+                "ema": None, "step": 0}, os.path.join(root, "checkpoint", "checkpoint_full.pth"))
+    return ["--ckpt_dir", os.path.join(root, "checkpoint"), "--ckpt_name",
+            "checkpoint_full.pth", "--cluster_dir", os.path.join(root, "clusters"),
+            "--data_dir", os.path.join(root, "data"), "--strict_batch"]
+
+
+def cli_launches(sk, split, name, dtype, fn):
+    """Run one CLI with every launch count set to 0 before it; fail unless
+    kernel #1 ran every OIL forward (1000, on wgmma, GroupNorm bf16) when
+    `dtype` is bf16, and never when it is fp32. Returns the CLI's result."""
+    out, counts = counted(sk, split, name, fn)
+    forwards = 1000 if dtype == "bf16" else 0
+    out["kernel_1_launches"] = counts["fused_score_forward"]
+    want = {"fused_score_forward": forwards, "fused_score_forward_split": 0}
+    if counts != want or sk.path_launches != {"wgmma": forwards, "wmma": 0} \
+            or sk.gn_mode_launches != {"bf16": forwards, "f32": 0}:
+        fail(f"{name}: launches {counts}, paths {sk.path_launches}, GroupNorm modes "
+             f"{sk.gn_mode_launches}; want {forwards} forwards of kernel #1 on wgmma, GN-bf16")
+    return out
+
+
+def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
+    """The batch evaluation path: run.opt_main at 886 x 50 and the published
+    width, the trained fixture through the CLI, run.inference --eval."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as root:
+        common = write_workspace(torch, tsm, root, HEADLINE_N, HEADLINE_S, WILD_N)
+        argv = ["--config", "h36m", "--hypo", str(HEADLINE_S), "--gt", "--dtype", "auto",
+                "--override", "ZeDO.sample=1", *common]
+        save = os.path.join(root, "results.npy")
+        name = (f"run.opt_main --config h36m --hypo {HEADLINE_S} --gt --strict_batch "
+                f"--dtype auto ({HEADLINE_N} poses, hidden 1024)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli_launches(sk, split, name, "bf16", lambda: opt_main.main(argv + ["--save", save]))
+        wall = time.perf_counter() - t0
+        poses = out["poses"]
+        if tuple(poses.shape) != (HEADLINE_N, HEADLINE_S, 17, 3) or poses.device.type != "cuda":
+            fail(f"batch CLI poses {tuple(poses.shape)} on {poses.device}")
+        if not torch.isfinite(poses).all() or not np.isfinite(np.load(save)).all():
+            fail("batch CLI produced non-finite poses")
+        if not 0 < out["p2"] <= out["p1"]:
+            fail(f"batch CLI: PA-MPJPE {out['p2']} not within (0, MPJPE {out['p1']}]")
+        rate = HEADLINE_N * HEADLINE_S / out["solve_s"]
+        log(f"batch CLI on {card}: solve {out['solve_s']:.3f} s (IPO {out['ipo_s']:.3f}, OIL "
+            f"{out['oil_s']:.3f}; {rate:.1f} poses/s), evaluation {out['eval_s']:.3f} s "
+            f"(both protocols), CLI wall-clock {wall:.3f} s; P1 {out['p1'] * 1000:.3f} mm, "
+            f"P2 {out['p2'] * 1000:.3f} mm (random weights)")
+        # the same run profiled: CUDA launches of kernel #1's library
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            opt_main.main(argv)
+            torch.cuda.synchronize()
+        own = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(k in e.key for k in ("wgmma_layer", "pad_input", "dense_layer")))
+        if own != 7 * 1000:
+            fail(f"profiled batch CLI: {own} CUDA launches of kernel #1's library, "
+                 f"want 7 a forward x 1000 forwards")
+        log(f"profiled batch CLI: {own} CUDA launches of kernel #1's library (7 a forward)")
+        result = {"kernel_1_launches": out["kernel_1_launches"], "solve_s": out["solve_s"], "eval_s": out["eval_s"], "ipo_s": out["ipo_s"],
+                  "oil_s": out["oil_s"], "wall_s": wall, "poses_per_s": rate,
+                  "eval_share": out["eval_s"] / wall, "cuda_launches": own}
+
+        # the trained fixture through the CLI, against the JAX CLI's values
+        fixture = tbt.FIXTURE
+        for dtype, (ref1, ref2) in JAX_CLI_FIXTURE_MM.items():
+            fargv = ["--config", "h36m", "--hypo", str(CLI_FIXTURE_HYPO), "--gt",
+                     "--strict_batch", "--dtype", dtype,
+                     "--ckpt_dir", os.path.join(fixture, "checkpoint"),
+                     "--ckpt_name", "checkpoint_trained.pth",
+                     "--cluster_dir", os.path.join(fixture, "clusters"),
+                     "--data_dir", os.path.join(fixture, "data")]
+            for o in ("model.hidden_dim=256", "model.embed_dim=128", "ZeDO.sample=1",
+                      "ZeDO.batch=24"):
+                fargv += ["--override", o]
+            fout = cli_launches(sk, split, f"run.opt_main trained fixture --dtype {dtype}",
+                                dtype, lambda: opt_main.main(fargv))
+            p1, p2 = fout["p1"] * 1000, fout["p2"] * 1000
+            log(f"trained fixture through the CLI, {dtype}: P1 {p1:.3f} mm, P2 {p2:.3f} mm "
+                f"(JAX CLI on the CPU {ref1:.3f}, {ref2:.3f}; tolerance {FIXTURE_TOL_MM} mm)")
+            if not (abs(p1 - ref1) <= FIXTURE_TOL_MM and abs(p2 - ref2) <= FIXTURE_TOL_MM):
+                fail(f"trained fixture CLI {dtype}: P1/P2 {p1}, {p2} vs {ref1}, {ref2}")
+            result[f"fixture_{dtype}_mm"] = [p1, p2]
+
+        wsave = os.path.join(root, "wild_results.npy")
+        wout = cli_launches(sk, split, "run.inference --config wild --eval", "bf16",
+                            lambda: inference.main(
+                                ["--config", "wild", "--hypo", "1", "--eval", "--save", wsave,
+                                 "--override", "ZeDO.sample=1", "--override",
+                                 f"ZeDO.batch={WILD_N}", *common]))
+        saved = np.load(wsave)
+        if saved.shape != (WILD_N, 1, 17, 3) or not np.isfinite(saved).all():
+            fail(f"inference saved {saved.shape}, finite {np.isfinite(saved).all()}")
+        if not 0 < wout["p2"] <= wout["p1"]:
+            fail(f"inference --eval: PA-MPJPE {wout['p2']} vs MPJPE {wout['p1']}")
+        log(f"inference --eval on {WILD_N} wild poses: solve {wout['solve_s']:.3f} s, "
+            f"P1 {wout['p1'] * 1000:.3f} mm, P2 {wout['p2'] * 1000:.3f} mm")
+    return result
+
+
 def counted(sk, split, name, fn):
     """Run one entry point with every launch count set to 0 before it;
     return its result and the counts just after it."""
@@ -709,6 +880,7 @@ def main() -> int:
         from zedo_tpu_torch import bench, presets
         from zedo_tpu_torch import bench_trained as tbt
         from zedo_tpu_torch.models import score_mlp as tsm
+        from zedo_tpu_torch.run import inference, opt_main
         from zedo_tpu_torch.ops.kernels import build
         from zedo_tpu_torch.ops.kernels import score_kernel as sk
         from zedo_tpu_torch.ops.kernels import score_kernel_split as split
@@ -747,6 +919,10 @@ def main() -> int:
     log(f"request wall-clock {walls} s on {card}; kernel time (launches x kernel ms) "
         f"{kernel_share:.3f} of it, IPO {ipo_s * len(walls) / sum(walls):.3f}")
     t0 = time.perf_counter()
+    batch_cli = phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card)
+    entry["launches_batch_cli"] = batch_cli["kernel_1_launches"]
+    log(f"phase batch CLI: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev)
     log(f"phase accuracy: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -760,6 +936,7 @@ def main() -> int:
     entry["resident_blocks_per_sm"] = blocks_per_sm
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
+                      "batch_cli": batch_cli,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

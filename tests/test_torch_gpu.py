@@ -168,3 +168,40 @@ def test_kernels_raise_on_widths_they_cannot_hold(cuda_device):
     packed, vecs = _packed(cuda_device, 2048, "bf16")
     with pytest.raises(ValueError, match="hidden 2048"):
         tsplit.fused_score_forward_split(torch.zeros(8, 51, device=cuda_device), packed, vecs)
+
+
+@pytest.mark.gpu
+def test_evaluation_on_the_card_matches_the_cpu(cuda_device):
+    """Batched Procrustes on the card (cuSOLVER's SVD, whose singular-vector
+    signs may differ from LAPACK's) gives the CPU's alignment and errors:
+    random, mirrored and near-collinear poses; PA-MPJPE, argmin, PCK/AUC and
+    hypothesis std of the multi-hypothesis evaluation. 1e-5 of the poses'
+    scale, as the CPU tests against the JAX package."""
+    import numpy as np
+
+    from zedo_tpu_torch.data import evaluation
+    from zedo_tpu_torch.ops import procrustes
+
+    rng = np.random.RandomState(0)
+    gt = rng.randn(200, 17, 3).astype(np.float32) * 0.3
+    preds = (gt[:, None] + rng.randn(200, 8, 17, 3) * 0.05).astype(np.float32)
+    preds[:, 1] *= np.array([-1.0, 1.0, 1.0], np.float32)  # mirrored
+    t = rng.randn(200, 17, 1).astype(np.float32)
+    preds[:, 2] = t * rng.randn(200, 1, 3) + rng.randn(200, 17, 3) * 1e-3  # near-collinear
+    cpu, card = torch.from_numpy(preds), torch.from_numpy(preds).to(cuda_device)
+    gt_b = torch.from_numpy(gt)[:, None].expand(cpu.shape)
+    for reflection in ("best", True, False):
+        want = procrustes.procrustes(gt_b, cpu, reflection=reflection).z
+        got = procrustes.procrustes(gt_b.to(cuda_device), card, reflection=reflection).z
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max() + 1e-7
+    for protocol2 in (False, True):
+        kw = dict(protocol2=protocol2, actions=np.arange(200) % 15 + 2, with_pck_auc=True,
+                  with_hypo_std=True)
+        want = evaluation.multi_hypothesis_eval(cpu, gt, **kw)
+        got = evaluation.multi_hypothesis_eval(card, gt, **kw)
+        np.testing.assert_allclose(got.error, want.error, rtol=1e-5)
+        np.testing.assert_allclose(got.per_sample_min, want.per_sample_min, rtol=0,
+                                   atol=1e-5 * want.per_sample_min.max())
+        np.testing.assert_array_equal(got.min_hypothesis, want.min_hypothesis)
+        assert (got.pck, got.auc) == (want.pck, want.auc)
+        np.testing.assert_allclose(got.hypo_std, want.hypo_std, rtol=1e-5)

@@ -1,4 +1,4 @@
-"""zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections; asks
+"""zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections, no absl; asks
 for CUDA by default and raises without it; no fallback from the kernel."""
 import os
 import subprocess
@@ -23,8 +23,8 @@ import importlib, pkgutil, sys
 import zedo_tpu_torch
 for m in pkgutil.walk_packages(zedo_tpu_torch.__path__, "zedo_tpu_torch."):
     importlib.import_module(m.name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "zedo_tpu."))
-             or m == "zedo_tpu" or m == "ml_collections")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "zedo_tpu", "ml_collections", "absl"))
 print("MODULES", len([m for m in sys.modules if m.startswith("zedo_tpu_torch")]))
 print("BAD", bad)
 """

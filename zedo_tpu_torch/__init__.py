@@ -6,7 +6,9 @@ keep `zedo_tpu`'s layout and names. The fused ScoreMLP forward of the OIL
 loop runs in a hand-written CUDA kernel (ops/kernels/score_kernel.py,
 csrc/score_mlp.cu); its split variant, the whole forward in one launch, is
 a second one (ops/kernels/score_kernel_split.py, csrc/score_mlp_split.cu),
-run by tools/bench_kernel.py --split. Entry points run on `cuda` unless
-the caller passes `device="cpu"`. The package imports torch and numpy,
-never jax.
+run by tools/bench_kernel.py --split. The batch CLIs (run/opt_main.py,
+run/inference.py) read a dataset (data/), solve it and score it with
+MPJPE and PA-MPJPE on the card (data/evaluation.py, ops/procrustes.py).
+Entry points run on `cuda` unless the caller passes `device="cpu"`. The
+package imports torch and numpy, never jax.
 """

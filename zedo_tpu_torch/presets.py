@@ -1,22 +1,87 @@
-"""Serving configurations as plain dataclasses.
+"""The shipped configurations, without ml_collections.
 
-The shared `configs/optim/*.py` files build ml_collections configs; the port
-does not depend on ml_collections, so the configuration that serving needs
-is restated here. `h36m()` holds the values of
-configs/optim/concat_pose_optimization_h36m.py (through configs/optim/_base.py
-and configs/default_pose_gen_configs.py) as the JAX package's serving path
-resolves them; a test holds the two against each other.
+`configs/optim/*.py` build ml_collections configs, which the port does not
+depend on. `optim_config(name)`
+restates, as a plain nested `Config`, the keys of
+configs/optim/concat_pose_optimization_<name>.py (through
+configs/optim/_base.py and configs/default_pose_gen_configs.py) that the
+batch CLI, `make_mlp_config`, `build_sde`, `get_sampling_fn` and
+`ZeDOConfig.from_config` read; a test holds every preset against its file,
+key by key. `model.hidden_dim` / `embed_dim` / `n_blocks` are the published
+1024 / 512 / 2, which the files leave to the CLI's constants, so that an
+override can point the CLI at a checkpoint of another width.
+
+`h36m()` is the serving configuration built from `optim_config("h36m")`.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
-from zedo_tpu_torch.diffusion.sampling import PCSampler
-from zedo_tpu_torch.diffusion.sde import SubVPSDE
+from zedo_tpu_torch.diffusion.sampling import PCSampler, get_sampling_fn
+from zedo_tpu_torch.diffusion.sde import SubVPSDE, build_sde
+from zedo_tpu_torch.models.registry import make_mlp_config
 from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig
-from zedo_tpu_torch.zeroshot.ipo import IPOConfig
-from zedo_tpu_torch.zeroshot.oil import OILConfig
 from zedo_tpu_torch.zeroshot.pipeline import ZeDOConfig
+
+
+class Config(dict):
+    """A nested dict read by key or by attribute: the part of
+    ml_collections.ConfigDict that the entry points and `apply_overrides`
+    use."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+
+def _config(tree: dict) -> Config:
+    return Config({k: _config(v) if isinstance(v, dict) else v for k, v in tree.items()})
+
+
+_ALL_17 = list(range(17))
+
+# the per-dataset ZeDO blocks of configs/optim/concat_pose_optimization_*.py
+_ZEDO = {
+    "h36m": dict(IPO_keylist=[0, 1, 4], RotAxes="z", IPO_T=3, IPO_minScaleT=0.5,
+                 IPO_maxScaleT=2, sample=640, batch=886),
+    "3dhp": dict(IPO_keylist=[0, 1, 4], RotAxes="z", IPO_T=3, IPO_minScaleT=0.5,
+                 IPO_maxScaleT=2, sample=3, batch=959),
+    "3dpw": dict(IPO_keylist=_ALL_17, RotAxes="z", IPO_T=8, IPO_minScaleT=0.2,
+                 IPO_maxScaleT=2, sample=35, batch=1015),
+    "ski": dict(IPO_keylist=_ALL_17, RotAxes="y", IPO_T=20, IPO_minScaleT=0.5,
+                IPO_maxScaleT=2, sample=1, batch=1716),
+    "wild": dict(IPO_keylist=[0, 1, 4], RotAxes="z", IPO_T=3, IPO_minScaleT=0.5,
+                 IPO_maxScaleT=2, sample=640, batch=886),
+}
+OPTIM_PRESETS = tuple(_ZEDO)
+
+
+def optim_config(name: str) -> Config:
+    """The configuration of configs/optim/concat_pose_optimization_<name>.py
+    (`name` is the dataset: h36m, 3dhp, 3dpw, ski or wild), a fresh copy."""
+    if name not in _ZEDO:
+        raise KeyError(f"no preset {name!r}; the presets are {', '.join(OPTIM_PRESETS)}")
+    return _config({
+        "data": {"dataset": name},
+        "training": {"sde": "subvpsde", "continuous": True},
+        "sampling": {"method": "pc", "predictor": "euler_maruyama", "corrector": "none",
+                     "snr": 0.16, "n_steps_each": 1, "probability_flow": False,
+                     "noise_removal": True},
+        "model": {"sigma_min": 0.01, "sigma_max": 50, "num_scales": 1000,
+                  "beta_min": 0.1, "beta_max": 20.0, "dropout": 0.1,
+                  "embedding_type": "positional", "fourier_scale": 16,
+                  "scale_by_sigma": False, "t": 0.1,
+                  "hidden_dim": 1024, "embed_dim": 512, "n_blocks": 2},
+        "ZeDO": {"IPO_iterations": 500, "OIL_iterations": 1000, "sampling_eps": 0.01,
+                 "score_reuse": 1, "gn_fp32": False, "use_pallas": None,
+                 "pallas_interpret": False, **copy.deepcopy(_ZEDO[name])},
+    })
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,21 +92,26 @@ class Preset:
     zcfg: ZeDOConfig
 
 
+def from_optim_config(config) -> Preset:
+    """The solver's configuration as the batch CLI builds it from `config`
+    (the probability flow forced on, as the reference's opt_main does)."""
+    m = config.model
+    sde = build_sde(config.training.sde, beta_min=m.beta_min, beta_max=m.beta_max,
+                    sigma_min=m.sigma_min, sigma_max=m.sigma_max, n=m.num_scales, t_max=m.t)
+    config.sampling.probability_flow = True
+    sampler = get_sampling_fn(config, sde, (config.ZeDO.batch, 17, 3), lambda x: x,
+                              config.ZeDO.sampling_eps)
+    return Preset(model_cfg=make_mlp_config(config), sde=sde, sampler=sampler,
+                  zcfg=ZeDOConfig.from_config(config))
+
+
 def h36m(**model_dims) -> Preset:
-    """The H36M serving configuration. `model_dims` overrides ScoreMLPConfig
-    widths (hidden_dim, embed_dim, n_blocks) for checkpoints of another size;
-    the published model is the default 1024/512/2."""
-    model_cfg = ScoreMLPConfig(embedding_type="positional", fourier_scale=16.0,
-                               scale_by_sigma=False, dropout=0.1, sigma_min=0.01, sigma_max=50.0,
-                               num_scales=1000, **model_dims)
-    sde = SubVPSDE(beta_min=0.1, beta_max=20.0, n=1000, t_max=0.1)
-    # serving forces the probability flow (deterministic step)
-    sampler = PCSampler(sde=sde, predictor="euler_maruyama", corrector="none",
-                        snr=0.16, n_steps=1, probability_flow=True,
-                        continuous=True, denoise=True, eps=0.01)
-    zcfg = ZeDOConfig(
-        ipo=IPOConfig(iterations=500, keypoint_list=(0, 1, 4), rot_axes="z",
-                      t_norm=3.0, min_scale_t=0.5, max_scale_t=2.0),
-        oil=OILConfig(iterations=1000, sampling_eps=0.01),
-    )
-    return Preset(model_cfg=model_cfg, sde=sde, sampler=sampler, zcfg=zcfg)
+    """The H36M serving configuration. `model_dims` overrides the widths
+    (hidden_dim, embed_dim, n_blocks) for checkpoints of another size; the
+    published model is the default 1024/512/2."""
+    unknown = set(model_dims) - {"hidden_dim", "embed_dim", "n_blocks"}
+    if unknown:
+        raise TypeError(f"h36m() takes hidden_dim, embed_dim and n_blocks, not {sorted(unknown)}")
+    config = optim_config("h36m")
+    config.model.update(model_dims)
+    return from_optim_config(config)

@@ -1,0 +1,196 @@
+"""Main zero-shot evaluation CLI: solve a dataset's poses for S hypotheses
+and print MPJPE (protocol 1) and PA-MPJPE (protocol 2) by action.
+
+    python -m zedo_tpu_torch.run.opt_main --config h36m \
+        --ckpt_dir checkpoint/ --ckpt_name checkpoint_1500.pth --gt --hypo 50
+
+Port of zedo_tpu/run/opt_main.py on one device, with the same flags plus
+`--device` (default cuda; `--device cpu` runs on the CPU). `--config` takes
+a preset name (presets.OPTIM_PRESETS) or the path of one of the files
+configs/optim/concat_pose_optimization_<name>.py it restates; `--override
+key.path=value` changes one key. `--dtype auto` is bf16 on the card, where
+every OIL forward runs the hand-written CUDA score kernel, and fp32 on the
+CPU. The evaluation runs in f32 on the solve's device. `--profile DIR`
+writes a torch.profiler trace of the solve to DIR/trace.json.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from zedo_tpu_torch import presets
+from zedo_tpu_torch.data import DATASETS
+from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.utils import profiling
+from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
+from zedo_tpu_torch.utils.config import apply_overrides, resolve_device, resolve_dtype
+from zedo_tpu_torch.zeroshot import pipeline
+
+N_JOINTS = 17
+JOINT_DIM = 3
+
+CLUSTER_FILES = {
+    "h36m": "h36m_cluster{s}.npy",
+    "3dhp": "3dhp_cluster{s}.npy",
+    "3dpw": "h36m_cluster{s}.npy",
+    "ski": "h36m_sitting_cluster{s}.npy",
+    "wild": "h36m_cluster{s}.npy",
+}
+
+# configs/optim/concat_pose_optimization_<suffix>.py -> preset
+CONFIG_FILES = {"h36m": "h36m", "3dhp": "3dhp", "pw3d": "3dpw", "ski": "ski", "wild": "wild"}
+_CONFIG_PREFIX = "concat_pose_optimization_"
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    """The flags opt_main and inference share."""
+    parser.add_argument("--config", required=True,
+                        help=f"a preset ({', '.join(presets.OPTIM_PRESETS)}) or the path of "
+                             f"configs/optim/{_CONFIG_PREFIX}<name>.py")
+    parser.add_argument("--ckpt_dir", type=str)
+    parser.add_argument("--ckpt_name", type=str)
+    parser.add_argument("--gt", action="store_true", default=False,
+                        help="use gt2d as condition")
+    parser.add_argument("--hypo", type=int, default=1, help="number of hypotheses")
+    parser.add_argument("--ema", action="store_true", default=False,
+                        help="apply EMA weights (reference loads-but-ignores them)")
+    parser.add_argument("--dtype", type=str, default="auto", choices=["auto", "fp32", "bf16"],
+                        help="auto = bf16 on CUDA (the hand-written score kernel), "
+                             "fp32 on the CPU")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--cluster_dir", type=str, default="clusters")
+    parser.add_argument("--data_dir", type=str, default="data")
+    parser.add_argument("--strict_batch", action="store_true", default=False,
+                        help="enforce config.ZeDO.batch == len(dataset)")
+    parser.add_argument("--override", action="append", default=[],
+                        help="config override, e.g. --override ZeDO.OIL_iterations=500")
+    parser.add_argument("--device", type=str, default="cuda")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="valid score model")
+    add_common_args(parser)
+    parser.add_argument("--save", type=str, default=None, help="save results .npy")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the solve to DIR/trace.json")
+    return parser.parse_args(argv)
+
+
+def load_config(arg: str) -> presets.Config:
+    """A preset by name, or by the path of the configs/optim file it restates."""
+    if arg in presets.OPTIM_PRESETS:
+        return presets.optim_config(arg)
+    stem = Path(arg).stem
+    suffix = stem[len(_CONFIG_PREFIX):] if stem.startswith(_CONFIG_PREFIX) else None
+    if not arg.endswith(".py") or suffix not in CONFIG_FILES:
+        raise ValueError(
+            f"--config {arg!r}: give a preset ({', '.join(presets.OPTIM_PRESETS)}) or one of "
+            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(CONFIG_FILES)}}}.py")
+    return presets.optim_config(CONFIG_FILES[suffix])
+
+
+def load_clusters(cluster_dir: str, dataset: str, hypo: int) -> np.ndarray:
+    name = CLUSTER_FILES[dataset].format(s=hypo)
+    path = os.path.join(cluster_dir, name)
+    if not os.path.exists(path) and os.path.exists(path.replace(".npy", ".pkl")):
+        path = path.replace(".npy", ".pkl")  # the reference's README ships .pkl names
+    return convert_cluster_file(path)
+
+
+def build_dataset(config, args):
+    ds_name = config.data.dataset
+    if ds_name not in DATASETS:
+        raise SystemExit(f"dataset {ds_name!r} has no reader in the port "
+                         f"(readers: {', '.join(DATASETS)})")
+    cls = DATASETS[ds_name]
+    if ds_name == "wild":
+        return cls(Path(args.data_dir, "wild"), sample_interval=config.ZeDO.sample)
+    return cls(Path(args.data_dir, ds_name), subset="test", gt2d=args.gt, abs_coord=True,
+               sample_interval=config.ZeDO.sample)
+
+
+def run_pipeline(config, args, dataset, stopwatch=None) -> torch.Tensor:
+    """Shared solve path of opt_main and inference: [N, S, j, 3] poses on
+    the device. stopwatch: an optional utils.profiling.Stopwatch that times
+    the phases "ipo", "oil" and "solve", each to the end of the device's work."""
+    dev = resolve_device(getattr(args, "device", "cuda"))
+    preset = presets.from_optim_config(config)
+    sample_poses = load_clusters(args.cluster_dir, config.data.dataset, args.hypo)
+
+    ckpt_path = os.path.join(args.ckpt_dir, args.ckpt_name)
+    print(f"loading model from {ckpt_path}")
+    params, step = load_any_checkpoint(ckpt_path, preset.model_cfg, use_ema=args.ema,
+                                       device=dev)
+    print(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
+    dtype = resolve_dtype(args.dtype, dev)
+    if dtype != args.dtype:
+        print(f"--dtype auto -> {dtype} on {dev.type}")
+    if dtype == "bf16":
+        params = _tree_map(lambda x: x.to(torch.bfloat16), params)
+
+    cond2d, conf, k = dataset.arrays()
+    n = len(cond2d)
+    if args.strict_batch and config.ZeDO.batch != n:
+        raise AssertionError(f"batch: {config.ZeDO.batch}, dataset len: {n}")
+    sample_poses = np.asarray(sample_poses, np.float32).reshape(-1, N_JOINTS, JOINT_DIM)
+    if len(sample_poses) < args.hypo:
+        raise ValueError(
+            f"cluster file provides {len(sample_poses)} poses but --hypo={args.hypo}")
+
+    def put(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    torch.manual_seed(args.seed)
+    if stopwatch is None:
+        stopwatch = profiling.Stopwatch()
+    profile_dir = getattr(args, "profile", None)
+    with contextlib.ExitStack() as stack:
+        if profile_dir:
+            stack.enter_context(profiling.trace(profile_dir))
+        with torch.no_grad(), stopwatch.phase("solve"):
+            result = pipeline.solve(params, preset.model_cfg, preset.sde, preset.sampler,
+                                    preset.zcfg, put(sample_poses[:args.hypo]), put(cond2d),
+                                    put(conf), put(k), stopwatch=stopwatch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    elapsed = stopwatch.totals["solve"]
+    if profile_dir:
+        print(f"device trace written to {profile_dir}")
+    print(
+        f"solved {n} poses x {args.hypo} hypotheses x {preset.zcfg.oil.iterations} OIL steps "
+        f"on 1 device(s) in {elapsed:.2f}s ({n * args.hypo / elapsed:.1f} poses/s)")
+    return result.poses
+
+
+def evaluate(dataset, poses, stopwatch) -> tuple[float, float]:
+    """Both protocols' tables; (protocol-1, protocol-2) errors in meters."""
+    with stopwatch.phase("eval"):
+        e1 = dataset.eval_multi(poses, protocol2=False, print_verbose=True)
+        e2 = dataset.eval_multi(poses, protocol2=True, print_verbose=True)
+    return e1, e2
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {poses [N, S, j, 3] on the device, p1, p2 (m),
+    solve_s, eval_s, ipo_s, oil_s} for in-process callers."""
+    args = parse_args(argv)
+    resolve_device(args.device)
+    config = apply_overrides(load_config(args.config), args.override)
+    dataset = build_dataset(config, args)
+    sw = profiling.Stopwatch()
+    poses = run_pipeline(config, args, dataset, stopwatch=sw)
+    if args.save:
+        np.save(args.save, poses.cpu().numpy())
+    print("eval...")
+    p1, p2 = evaluate(dataset, poses, sw)
+    return {"poses": poses, "p1": p1, "p2": p2, "solve_s": sw.totals["solve"],
+            "eval_s": sw.totals["eval"], "ipo_s": sw.totals["ipo"], "oil_s": sw.totals["oil"]}
+
+
+if __name__ == "__main__":
+    main()

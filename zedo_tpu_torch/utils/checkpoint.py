@@ -85,6 +85,18 @@ def _merge(base: dict, override: dict) -> dict:
     return out
 
 
+def ema_shadow_to_params(shadow_params: list, cfg: ScoreMLPConfig, device="cuda") -> dict:
+    """EMA shadow list (positional, trainables only) -> params tree. Buffers
+    (`sigmas`, the fourier `gauss_proj.W`) are not EMA-tracked: callers merge
+    this over the model's params."""
+    names = _param_order(cfg)
+    if len(names) != len(shadow_params):
+        raise ValueError(
+            f"EMA shadow length {len(shadow_params)} != expected {len(names)}")
+    flat = {n: p.detach().cpu().numpy() for n, p in zip(names, shadow_params)}
+    return _flat_to_tree(flat, resolve_device(device))
+
+
 def load_torch_checkpoint(path: str, cfg: ScoreMLPConfig, device="cuda") -> dict:
     """Reference .pth -> {params, ema_params (merged over params) or None,
     step, epoch}. The reference loads EMA at inference but never applies
@@ -93,15 +105,36 @@ def load_torch_checkpoint(path: str, cfg: ScoreMLPConfig, device="cuda") -> dict
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     params = params_from_torch_state_dict(ckpt["model_state_dict"], cfg, dev)
     ema_params = None
-    ema = ckpt.get("ema")
-    if ema is not None:
-        names = _param_order(cfg)
-        shadow = ema["shadow_params"]
-        if len(names) == len(shadow):
-            flat = {n: p.detach().cpu().numpy() for n, p in zip(names, shadow)}
-            ema_params = _merge(params, _flat_to_tree(flat, dev))
+    if ckpt.get("ema") is not None:
+        try:
+            ema_params = _merge(params, ema_shadow_to_params(
+                ckpt["ema"]["shadow_params"], cfg, dev))
+        except ValueError as e:
+            # other trainable sets (the ControlNet adapters) keep another
+            # shadow order; the reference never applies EMA at inference
+            print(f"note: EMA shadow list not mapped ({e}); --ema unavailable")
     return {"params": params, "ema_params": ema_params,
             "step": int(ckpt.get("step", 0)), "epoch": int(ckpt.get("epoch", 0))}
+
+
+def load_any_checkpoint(path: str, cfg: ScoreMLPConfig, use_ema: bool = False, log=print,
+                        device="cuda"):
+    """Reference `.pth` checkpoint -> (params, step), with the EMA shadow
+    weights when `use_ema` and the checkpoint carries them, and a note
+    otherwise (the reference loads EMA at inference but never applies it,
+    so the raw weights are the default). The JAX package's orbax form is
+    not read here."""
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: only reference .pth checkpoints are read by the port; orbax "
+            "checkpoints are the JAX package's own format (convert with "
+            "`python tools/convert_checkpoint.py native2pth`)")
+    ckpt = load_torch_checkpoint(path, cfg, device)
+    if use_ema and not ckpt["ema_params"]:
+        log("note: --ema requested but the checkpoint carries no EMA shadow params; "
+            "using the raw weights")
+    params = ckpt["ema_params"] if (use_ema and ckpt["ema_params"]) else ckpt["params"]
+    return params, ckpt["step"]
 
 
 def convert_cluster_file(path: str) -> np.ndarray:

@@ -28,6 +28,34 @@ class ZeDOConfig:
     ipo: IPOConfig = IPOConfig()
     oil: OILConfig = OILConfig()
 
+    @classmethod
+    def from_config(cls, config) -> "ZeDOConfig":
+        """Build from a nested config with a ZeDO block. `use_pallas` selects
+        the CUDA score kernel (`use_kernel`); `pallas_interpret` has no
+        counterpart: on the CPU the kernel's wrapper runs its plain version."""
+        z = config.ZeDO
+        if z.get("pallas_interpret", False):
+            raise ValueError(
+                "ZeDO.pallas_interpret=True has no counterpart in the port: the CUDA "
+                "kernel's wrapper runs its plain version on CPU tensors")
+        return cls(
+            ipo=IPOConfig(
+                iterations=z.IPO_iterations,
+                keypoint_list=tuple(z.IPO_keylist),
+                rot_axes=z.RotAxes,
+                t_norm=z.IPO_T,
+                min_scale_t=z.IPO_minScaleT,
+                max_scale_t=z.IPO_maxScaleT,
+            ),
+            oil=OILConfig(
+                iterations=z.OIL_iterations,
+                sampling_eps=z.sampling_eps,
+                score_reuse=int(z.get("score_reuse", 1)),
+                gn_fp32=bool(z.get("gn_fp32", False)),
+                use_kernel=z.get("use_pallas", None),
+            ),
+        )
+
 
 class SolveResult(NamedTuple):
     poses: torch.Tensor  # [N, S, j, 3]
