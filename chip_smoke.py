@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      torch.matmul; then against its plain version at the published width
      (hidden 1024, embed 512, bf16 weights) in both GroupNorm statistics
      modes, on 44,300 rows (the H36M 886 x 50 solve), a ragged row count, 1
-     and 129 rows; at hidden 256 and 2048 (wgmma path, groups of 8 and 64
-     channels) and at 384 and 768 (wmma path, groups of 12 and 24) in both
-     modes; timed, with plain-version and bf16 torch.matmul-chain times, the
+     and 129 rows; at 36 input columns (SyRIP's 12 joints) on 10,000, 129
+     and 1 rows, timed at 10,000 rows, and timed at 40,000 rows of 51
+     columns (MINI-RGBD 2,000 x 20); at hidden 256 and 2048 (wgmma path,
+     groups of 8 and 64 channels) and at 384 and 768 (wmma path, groups of
+     12 and 24) in both modes; timed, with plain-version and bf16 torch.matmul-chain times, the
      wrapper's host time per forward (at 44,300 and at 129 rows), the
      roofline bound and the device-traffic floor of one launch per layer;
   4. kernel #2 (fused_score_forward_split): its address function against a
@@ -35,11 +37,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      against the OIL steps, its GroupNorm mode against the default (bf16,
      JAX's default) and its path against wgmma; IPO alone; a profiled
      request, from which the kernel's CUDA launches per forward are counted;
-  6. accuracy on the committed trained fixture (hidden 256): fp32, bf16
-     (kernel #1, GroupNorm bf16) and bf16 with gn_fp32, best-hypothesis
-     MPJPE against the JAX package's value for the same scenes, schedule
-     and mode;
-  7. the batch CLI, each run with the launch counts set to 0 before it and
+  6. the batch CLI, each run with the launch counts set to 0 before it and
      checked after it: run.opt_main --config h36m --hypo 50 --gt
      --strict_batch --dtype auto on a synthetic H36M workspace of 886 poses
      (published width, seeded weights, full schedule), with kernel #1 on
@@ -47,7 +45,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      run counting the kernel's CUDA launches; the trained fixture through the
      CLI in fp32 and bf16 against the JAX CLI's P1/P2; run.inference --eval
      on a wild custom_data.npz;
-  8. the kernel tooling path, each entry point with the launch counts set to
+  7. the infant path, each run with the launch counts set to 0 before it
+     and checked after it: run.opt_main_infant --dtype auto on synthetic
+     workspaces at the published width with seeded weights and the full
+     schedule: --config mini (2,000 validation frames of sequences 11 and
+     12) and --config syrip (the 500 test images) at --hypo 20, kernel #1
+     on every OIL forward (40,000 rows at 51 columns, 10,000 at 36);
+     --control and --cond on the MINI-RGBD frames at --hypo 1 (the generic
+     OIL path, no kernel), each finite with its reprojection trace; the
+     trained fixture's poses as MINI-RGBD frames in fp32 and bf16 against
+     the JAX CLI's MPJPE;
+  8. accuracy on the committed trained fixture (hidden 256): fp32, bf16
+     (kernel #1, GroupNorm bf16) and bf16 with gn_fp32, best-hypothesis
+     MPJPE against the JAX package's value for the same scenes, schedule
+     and mode;
+  9. the kernel tooling path, each entry point with the launch counts set to
      0 before it and checked after it: tools.bench_kernel --split (the path
      of kernel #2), tools.validate_dtype, bench (the headline at 886 x 50)
      and bench --trained against the JAX package's values.
@@ -97,6 +109,20 @@ FIXTURE_SCENES, FIXTURE_IPO, FIXTURE_OIL = 24, 200, 300
 CLI_FIXTURE_HYPO = 2
 JAX_CLI_FIXTURE_MM = {"fp32": (35.91820411384106, 8.938108881314596),
                       "bf16": (36.44946527977785, 8.888261237492165)}
+
+# Mean MPJPE (mm) of the JAX package's infant CLI on the CPU for the trained
+# fixture's 24 H36M test poses as MINI-RGBD frames
+# (write_infant_fixture_workspace) at the full 500 IPO / 1000 OIL schedule:
+# zedo_tpu.run.opt_main_infant.main on the mini config with model.hidden_dim
+# 256, embed_dim 128, --hypo 1, --dtype fp32 and bf16 (on the CPU XLA's
+# unfused bf16 model). Recomputed and held against these values by
+# tests/test_torch_infant.py::test_chip_smoke_infant_reference.
+INFANT_FIXTURE_HYPO = 1
+JAX_INFANT_FIXTURE_MPJPE_MM = {"fp32": 101.74825042486191, "bf16": 101.87052935361862}
+# the infant phase: MINI-RGBD's validation sequences 11 and 12 at 2,000
+# frames and SyRIP's validate-500 split, 20 hypotheses each (40,000 and
+# 10,000 rows; SyRIP's 12 joints give kernel #1 36 input columns)
+MINI_FRAMES, SYRIP_IMAGES, INFANT_HYPO = 2000, 500, 20
 
 # zedo_tpu/bench_trained.run_trained_bounds(n=16, s=50) on the CPU (full
 # 500 IPO / 1000 OIL schedule; bf16 there is XLA's unfused bf16 model), the
@@ -169,9 +195,10 @@ def to_bf16(torch, tree):
             for k, v in tree.items()}
 
 
-def packed_weights(torch, sk, tsm, dev, hidden=1024, embed=512, groups=32):
+def packed_weights(torch, sk, tsm, dev, hidden=1024, embed=512, groups=32, n_joints=17):
     """{gn mode: (packed, vecs)} of random seeded bf16 weights."""
-    cfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=embed, group_norm_groups=groups)
+    cfg = tsm.ScoreMLPConfig(n_joints=n_joints, hidden_dim=hidden, embed_dim=embed,
+                             group_norm_groups=groups)
     params = to_bf16(torch, tsm.init_params(torch.Generator().manual_seed(0), cfg, device=dev))
     temb = tsm.time_embedding(params, cfg, torch.full((1,), 47.3, device=dev))[0]
     out = {}
@@ -366,6 +393,34 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
             (errs if path == "wgmma" else errs_wmma).append(err)
             if sk.path_launches[path] != 1:
                 fail(f"hidden {hidden}: paths {sk.path_launches}, want the {path} kernel")
+    # SyRIP's 12 joints: x of 36 columns (padded to 64 for the first layer's
+    # TMA loads, the post layer's first 36 of 128 columns written out)
+    rows36 = SYRIP_IMAGES * INFANT_HYPO
+    weights36, errs36 = packed_weights(torch, sk, tsm, dev, n_joints=12), []
+    for gn, (p, v) in weights36.items():
+        for r in (rows36, 129, 1):
+            x36 = torch.randn(r, 36, generator=gen).to(dev)
+            sk.reset_launch_counts()
+            errs36.append(check(torch, f"kernel #1 wgmma 12 joints (36 columns) gn={gn} vs plain",
+                                sk.fused_score_forward(x36, p, v),
+                                sk.fused_score_forward_reference(x36, p, v), r))
+            if sk.path_launches != {"wgmma": 1, "wmma": 0}:
+                fail(f"36 columns: paths {sk.path_launches}, want one launch on wgmma")
+    p36, v36 = weights36["bf16"]
+    x36 = torch.randn(rows36, 36, generator=gen).to(dev)
+    ms36 = cuda_ms(torch, lambda: sk.fused_score_forward(x36, p36, v36), 20, 3)
+    plain36 = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x36, p36, v36), 3, 1)
+    lib36 = cuda_ms(torch, lambda: library_forward(x36, p36, v36), 10, 2)
+    bound36, by36, _ = bound(x36, p36, v36, rows36)
+    # MINI-RGBD's 2,000 frames x 20 hypotheses at 51 columns
+    rows40 = MINI_FRAMES * INFANT_HYPO
+    x40 = torch.randn(rows40, 51, generator=gen).to(dev)
+    ms40 = cuda_ms(torch, lambda: sk.fused_score_forward(x40, packed, vecs), 20, 3)
+    bound40, _, _ = bound(x40, packed, vecs, rows40)
+    log(f"fused_score_forward at 36 columns, {rows36}x1024: kernel {ms36:.4f} ms (the "
+        f"{by36} bound {bound36:.4f} ms), plain version {plain36:.3f} ms, bf16 torch.matmul "
+        f"chain {lib36:.4f} ms; at 51 columns, {rows40} rows: {ms40:.4f} ms (bound "
+        f"{bound40:.4f} ms)")
     entry = {
         "name": "fused_score_forward", "route": "cuda",
         "source": "zedo_tpu_torch/csrc/score_mlp.cu",
@@ -377,6 +432,9 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
         "host_us_per_forward": host, "ms_129_rows": small_ms,
         "host_us_per_forward_129_rows": small_host,
         "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"],
+        "c36": {"rows": rows36, "max_abs_err": max(errs36), "ms": ms36, "plain_ms": plain36,
+                "library_ms": lib36, "bound_ms": bound36, "bound_by": by36},
+        "rows_40000": {"rows": rows40, "ms": ms40, "bound_ms": bound40},
     }
     return entry, weights, x
 
@@ -660,6 +718,18 @@ def phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev):
             fail(f"trained fixture {name}: MPJPE {mm} vs {ref}")
 
 
+def save_pth(torch, params, path):
+    """params as a reference checkpoint: the DataParallel-prefixed state
+    dict in {epoch, model_state_dict, ema, step}."""
+
+    def flat(tree, prefix=""):
+        for key, v in tree.items():
+            yield from flat(v, f"{prefix}{key}.") if isinstance(v, dict) else [(prefix + key, v)]
+
+    torch.save({"epoch": 0, "model_state_dict": {"module." + key: v for key, v in flat(params)},
+                "ema": None, "step": 0}, path)
+
+
 def write_workspace(torch, tsm, root, n, s, n_wild):
     """A synthetic workspace in the layout of tests/test_cli_e2e.py::workdir:
     data/h36m/h36m_test.pkl (n poses over the H36M actions), data/wild/
@@ -701,24 +771,113 @@ def write_workspace(torch, tsm, root, n, s, n_wild):
     os.makedirs(os.path.join(root, "checkpoint"))
     params = tsm.init_params(torch.Generator().manual_seed(0), tsm.ScoreMLPConfig(),
                              device="cpu")
-
-    def flat(tree, prefix=""):
-        for key, v in tree.items():
-            yield from flat(v, f"{prefix}{key}.") if isinstance(v, dict) else [(prefix + key, v)]
-
-    torch.save({"epoch": 0, "model_state_dict": {"module." + key: v for key, v in flat(params)},
-                "ema": None, "step": 0}, os.path.join(root, "checkpoint", "checkpoint_full.pth"))
+    save_pth(torch, params, os.path.join(root, "checkpoint", "checkpoint_full.pth"))
     return ["--ckpt_dir", os.path.join(root, "checkpoint"), "--ckpt_name",
             "checkpoint_full.pth", "--cluster_dir", os.path.join(root, "clusters"),
             "--data_dir", os.path.join(root, "data"), "--strict_batch"]
 
 
-def cli_launches(sk, split, name, dtype, fn):
+def infant_scenes(rng, count, n_joints, depth):
+    """count poses [count, n_joints, 3] in camera coordinates (m): one random
+    base pose (0.1 m a coordinate) with 1 cm of jitter a frame, its root at
+    (0.05, 0.02, depth) with 2 cm of jitter."""
+    pose = rng.randn(n_joints, 3) * 0.1 + rng.randn(count, n_joints, 3) * 0.01
+    pose -= pose[:, :1]
+    return (pose + np.array([0.05, 0.02, depth]) + rng.randn(count, 1, 3) * 0.02) \
+        .astype(np.float32)
+
+
+def pinhole(cam, k):
+    """[..., 2] pixels of camera-frame points under intrinsics k [3, 3]."""
+    return (cam[..., :2] / cam[..., 2:] * [k[0, 0], k[1, 1]] + [k[0, 2], k[1, 2]]) \
+        .astype(np.float32)
+
+
+def write_mini_workspace(root, rng, n_val, hypo=1, n_train=8, val_poses=None, cluster=None):
+    """root/data/mini-rgbd/MINI-RGBD.npy in the layout of
+    zedo_tpu/data/prep/mini_process.py: n_val validation frames over
+    sequences 11 and 12 and n_train training frames of sequence 01, each an
+    H36M-17 pose in the SMIL_TO_H36M slots of the SMIL-25 layout (the other
+    slots at the pelvis) projected with MINI_K; and root/mini_cluster_{hypo}
+    .npy with `cluster` [1, 17, 3] (default: the first frame's pose,
+    root-relative) so placed, the only pose of the file the CLI reads."""
+    from zedo_tpu_torch.data.mini_rgbd import SMIL_TO_H36M, mini_intrinsics
+
+    def smil(p17):
+        p25 = np.repeat(p17[:, :1], 25, axis=1)
+        p25[:, SMIL_TO_H36M] = p17
+        return p25
+
+    k = mini_intrinsics()
+    if val_poses is None:
+        val_poses = infant_scenes(rng, n_val, 17, 1.0)
+    if cluster is None:
+        cluster = val_poses[:1] - val_poses[:1, :1]
+    d = {"train": {}, "validate": {}}
+    for split, seqs, poses in (("train", ("01",), infant_scenes(rng, n_train, 17, 1.0)),
+                               ("validate", ("11", "12"), val_poses)):
+        p25 = smil(poses)
+        for i in range(len(p25)):
+            seq = seqs[i * len(seqs) // len(p25)]
+            d[split][f"{seq}_syn_{i:05d}.txt"] = {"pose_2d": pinhole(p25[i], k),
+                                                  "pose_3d": p25[i]}
+    os.makedirs(os.path.join(root, "data", "mini-rgbd"), exist_ok=True)
+    np.save(os.path.join(root, "data", "mini-rgbd", "MINI-RGBD.npy"), d)
+    np.save(os.path.join(root, f"mini_cluster_{hypo}.npy"), smil(cluster))
+
+
+def write_syrip_workspace(root, rng, n_test, n_train=4, w=640, h=480):
+    """root/data/syrip in the layout the SyRIP reader reads (the maps of
+    zedo_tpu/data/prep/syrip_process.py): n_train training and n_test test
+    images (the validate-500 split) of w x h, 12-joint poses at 3 m whose
+    COCO keypoints and corrected 3D land, through the reader's CHANGE_2D and
+    CHANGE_12 maps, on the pose and its projection with f = 2000."""
+    from zedo_tpu_torch.data.syrip import CHANGE_2D, CHANGE_12, SYRIP_FOCAL
+
+    n = n_train + n_test
+    poses = infant_scenes(rng, n, 12, 3.0)
+    px = pinhole(poses, np.array([[SYRIP_FOCAL, 0, w / 2], [0, SYRIP_FOCAL, h / 2], [0, 0, 1]]))
+    order = np.array(CHANGE_12) % 12
+    raw3d = np.zeros((n, 14, 3), np.float32)
+    raw3d[:, order] = poses
+    keypoints = np.zeros((n, 17, 3), np.float32)
+    keypoints[:, np.array(CHANGE_2D)[order] % 17, :2] = px
+    keypoints[..., 2] = 2
+    names = [f"img{i:05d}.jpg" for i in range(n)]
+    base = os.path.join(root, "data", "syrip")
+    for sub in ("SyRIP_3d_pred", "SyRIP_3d_correction"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    np.save(os.path.join(base, "SyRIP_3d_pred", "output_imgnames.npy"),
+            np.array([f"syrip/images/{name}" for name in names]))
+    np.save(os.path.join(base, "SyRIP_3d_correction", "correct_3D.npy"), raw3d)
+    for split, ids in (("train", range(n_train)), ("test", range(n_train, n))):
+        np.save(os.path.join(base, f"{split}_rysip.npy"), {names[i]: [names[i], i] for i in ids})
+        np.save(os.path.join(base, f"{split}_pose2d.npy"),
+                {names[i]: {"h": h, "w": w, "bbox": [0, 0, w, h], "keypoints": keypoints[i]}
+                 for i in ids})
+
+
+def write_infant_fixture_workspace(root, tbt):
+    """The trained fixture's 24 H36M test poses as MINI-RGBD validation
+    frames: root-relative (m), at (0, 0.1, 3.5); the first frame's pose as
+    the cluster. The infant IPO (three rotation axes) is chaotic from a far
+    cluster, where f32 rounding moves the MPJPE by millimetres; here it
+    does not (tests/test_torch_infant.py::
+    test_chip_smoke_infant_fixture_is_well_conditioned)."""
+    with open(os.path.join(tbt.FIXTURE, "data", "h36m", "h36m_test.pkl"), "rb") as f:
+        items = pickle.load(f)
+    pose = np.array([item["joint_3d_camera"] for item in items], np.float64) / 1000.0
+    cam = (pose - pose[:, :1] + np.array([0.0, 0.1, 3.5])).astype(np.float32)
+    write_mini_workspace(root, np.random.RandomState(0), len(cam), hypo=INFANT_FIXTURE_HYPO,
+                         val_poses=cam)
+
+
+def cli_launches(sk, split, name, forwards, fn):
     """Run one CLI with every launch count set to 0 before it; fail unless
-    kernel #1 ran every OIL forward (1000, on wgmma, GroupNorm bf16) when
-    `dtype` is bf16, and never when it is fp32. Returns the CLI's result."""
+    kernel #1 ran `forwards` times, all on wgmma with GroupNorm bf16 (1000:
+    every OIL forward of a bf16 solve on the fast path; 0: an fp32 solve or
+    the generic path), and kernel #2 never. Returns the CLI's result."""
     out, counts = counted(sk, split, name, fn)
-    forwards = 1000 if dtype == "bf16" else 0
     out["kernel_1_launches"] = counts["fused_score_forward"]
     want = {"fused_score_forward": forwards, "fused_score_forward_split": 0}
     if counts != want or sk.path_launches != {"wgmma": forwards, "wmma": 0} \
@@ -742,7 +901,7 @@ def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
                 f"--dtype auto ({HEADLINE_N} poses, hidden 1024)")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = cli_launches(sk, split, name, "bf16", lambda: opt_main.main(argv + ["--save", save]))
+        out = cli_launches(sk, split, name, 1000, lambda: opt_main.main(argv + ["--save", save]))
         wall = time.perf_counter() - t0
         poses = out["poses"]
         if tuple(poses.shape) != (HEADLINE_N, HEADLINE_S, 17, 3) or poses.device.type != "cuda":
@@ -784,7 +943,7 @@ def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
                       "ZeDO.batch=24"):
                 fargv += ["--override", o]
             fout = cli_launches(sk, split, f"run.opt_main trained fixture --dtype {dtype}",
-                                dtype, lambda: opt_main.main(fargv))
+                                1000 if dtype == "bf16" else 0, lambda: opt_main.main(fargv))
             p1, p2 = fout["p1"] * 1000, fout["p2"] * 1000
             log(f"trained fixture through the CLI, {dtype}: P1 {p1:.3f} mm, P2 {p2:.3f} mm "
                 f"(JAX CLI on the CPU {ref1:.3f}, {ref2:.3f}; tolerance {FIXTURE_TOL_MM} mm)")
@@ -793,7 +952,7 @@ def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
             result[f"fixture_{dtype}_mm"] = [p1, p2]
 
         wsave = os.path.join(root, "wild_results.npy")
-        wout = cli_launches(sk, split, "run.inference --config wild --eval", "bf16",
+        wout = cli_launches(sk, split, "run.inference --config wild --eval", 1000,
                             lambda: inference.main(
                                 ["--config", "wild", "--hypo", "1", "--eval", "--save", wsave,
                                  "--override", "ZeDO.sample=1", "--override",
@@ -805,6 +964,169 @@ def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
             fail(f"inference --eval: PA-MPJPE {wout['p2']} vs MPJPE {wout['p1']}")
         log(f"inference --eval on {WILD_N} wild poses: solve {wout['solve_s']:.3f} s, "
             f"P1 {wout['p1'] * 1000:.3f} mm, P2 {wout['p2'] * 1000:.3f} mm")
+    return result
+
+
+def infant_oil_inputs(torch, dev, rows, seed):
+    """OIL's inputs for `rows` MINI-RGBD-like poses on `dev`: the
+    root-relative pose, its translation, its pixels under MINI_K, K."""
+    from zedo_tpu_torch.data.mini_rgbd import mini_intrinsics
+
+    cam = infant_scenes(np.random.RandomState(seed), rows, 17, 1.0)
+    k = mini_intrinsics()
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+            for a in (cam - cam[:, :1], cam[:, :1], pinhole(cam, k),
+                      np.broadcast_to(k, (rows, 3, 3)))]
+
+
+def time_track_reproj(torch, tsm, dev, rows):
+    """OIL alone at the mini configuration (1000 steps, bf16 weights, kernel
+    #1) on `rows` rows of one hypothesis, without and with the reprojection
+    trace, in turns (off, on, on, off); the seconds of each run by mode."""
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.zeroshot import oil
+
+    preset = presets.from_optim_config(presets.optim_config("mini"))
+    params = to_bf16(torch, tsm.init_params(torch.Generator().manual_seed(0), preset.model_cfg,
+                                            device=dev))
+    x0, t0_, px, k = infant_oil_inputs(torch, dev, rows, 1)
+    seconds = {False: [], True: []}
+    for on in (False, True, True, False):
+        cfg = dataclasses.replace(preset.zcfg.oil, track_reproj=on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = oil.run_oil(params, preset.model_cfg, preset.sde, preset.sampler, x0, t0_, px, k,
+                          None, cfg)
+        torch.cuda.synchronize()
+        seconds[on].append(time.perf_counter() - t0)
+        if not torch.isfinite(res.pose).all():
+            fail(f"OIL alone, track_reproj={on}: poses not finite")
+    return seconds
+
+
+def profile_generic(torch, tsm, dev, rows, steps=50):
+    """The generic OIL path alone, the ControlNet adapter (published width,
+    bf16 weights as under --dtype auto) on `rows` rows for `steps` steps
+    under torch.profiler: (wall s, device busy s, CUDA launches a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.models import control_mlp
+    from zedo_tpu_torch.zeroshot import oil
+
+    preset = presets.from_optim_config(presets.optim_config("mini"))
+    params = to_bf16(torch, control_mlp.init_params(torch.Generator().manual_seed(0),
+                                                    preset.model_cfg, device=dev))
+    args = infant_oil_inputs(torch, dev, rows, 2)
+    cfg = dataclasses.replace(preset.zcfg.oil, iterations=steps, track_reproj=True)
+
+    def run():
+        return oil.run_oil(params, preset.model_cfg, preset.sde, preset.sampler, *args, None,
+                           cfg, model_apply=control_mlp.apply)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    return wall, busy, sum(e.count for e in events) / steps
+
+
+def phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card):
+    """The infant path, run.opt_main_infant from a synthetic workspace as its
+    working directory: (a) the plain model on MINI-RGBD and (b) on SyRIP at
+    the published width with --hypo 20 (kernel #1 on all 1000 OIL
+    forwards, at 51 and 36 columns); (c) --control and --cond on (a)'s data
+    at --hypo 1 (the generic path, no kernel); (d) the trained fixture as
+    MINI-RGBD frames in fp32 and bf16 against the JAX CLI's MPJPE."""
+    from zedo_tpu_torch.models import control_mlp, score_mlp_cond
+
+    result = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            rng = np.random.RandomState(0)
+            write_mini_workspace(root, rng, MINI_FRAMES, hypo=INFANT_HYPO)
+            write_syrip_workspace(root, rng, SYRIP_IMAGES)
+            os.makedirs("checkpoint")
+            for name, module, n_joints in (("plain_mini", tsm, 17), ("plain_syrip", tsm, 12),
+                                           ("control", control_mlp, 17),
+                                           ("cond", score_mlp_cond, 17)):
+                cfg = tsm.ScoreMLPConfig(n_joints=n_joints)
+                save_pth(torch, module.init_params(torch.Generator().manual_seed(0), cfg,
+                                                   device="cpu"),
+                         os.path.join("checkpoint", f"{name}.pth"))
+            runs = (("mini", "mini", "plain_mini", INFANT_HYPO, [], 1000, MINI_FRAMES),
+                    ("syrip", "syrip", "plain_syrip", INFANT_HYPO, [], 1000, SYRIP_IMAGES),
+                    ("mini_control", "mini", "control", 1, ["--control"], 0, MINI_FRAMES),
+                    ("mini_cond", "mini", "cond", 1, ["--cond"], 0, MINI_FRAMES))
+            for key, config, ckpt, hypo, flags, forwards, n in runs:
+                argv = ["--config", config, "--hypo", str(hypo), "--dtype", "auto", *flags,
+                        "--ckpt_dir", "checkpoint", "--ckpt_name", f"{ckpt}.pth"]
+                if config == "mini":
+                    argv += ["--cluster_path", f"mini_cluster_{INFANT_HYPO}.npy"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                name = f"run.opt_main_infant {' '.join(argv[:6 + len(flags)])}"
+                out = cli_launches(sk, split, name, forwards,
+                                   lambda: opt_main_infant.main(argv))
+                wall = time.perf_counter() - t0
+                poses, trace = out["poses"], out["reproj_px"]
+                n_joints = 17 if config == "mini" else 12
+                if tuple(poses.shape) != (n, hypo, n_joints, 3) or not torch.isfinite(poses).all():
+                    fail(f"infant {key}: poses {tuple(poses.shape)}, finite "
+                         f"{bool(torch.isfinite(poses).all())}")
+                if trace.shape != (hypo, 1000) or not np.isfinite(trace).all() \
+                        or not np.isfinite(out["mpjpe"]):
+                    fail(f"infant {key}: trace {trace.shape} or MPJPE {out['mpjpe']} not finite")
+                rate = n * hypo / out["solve_s"]
+                log(f"infant {key} on {card}: {n} x {hypo} = {n * hypo} rows, solve "
+                    f"{out['solve_s']:.3f} s (IPO {out['ipo_s']:.3f}, OIL {out['oil_s']:.3f}; "
+                    f"{rate:.1f} poses/s), evaluation {out['eval_s']:.3f} s, CLI wall-clock "
+                    f"{wall:.3f} s; kernel #1 launches {out['kernel_1_launches']}; trace "
+                    f"{trace.mean(0)[0]:.2f} -> {trace.mean(0)[-1]:.2f} px (random weights)")
+                result[key] = {"rows": n * hypo, "solve_s": out["solve_s"], "ipo_s": out["ipo_s"],
+                               "oil_s": out["oil_s"], "eval_s": out["eval_s"], "wall_s": wall,
+                               "poses_per_s": rate, "kernel_1_launches": out["kernel_1_launches"]}
+        finally:
+            os.chdir(cwd)
+    rows = MINI_FRAMES * INFANT_HYPO
+    seconds = time_track_reproj(torch, tsm, torch.device("cuda"), rows)
+    off, on = np.mean(seconds[False]), np.mean(seconds[True])
+    log(f"OIL alone at {rows} rows on {card}: {off:.3f} s without the reprojection trace, "
+        f"{on:.3f} s with it (runs in turns: off {seconds[False]}, on {seconds[True]})")
+    result["oil_s_track_reproj"] = {"off": seconds[False], "on": seconds[True], "rows": rows}
+    wall, busy, per_step = profile_generic(torch, tsm, torch.device("cuda"), MINI_FRAMES)
+    log(f"generic OIL path, ControlNet adapter, {MINI_FRAMES} rows, 50 steps profiled on "
+        f"{card}: {wall:.3f} s wall-clock, device busy {busy:.3f} s ({busy / wall:.3f}), "
+        f"{per_step:.0f} CUDA launches a step")
+    result["generic_profile"] = {"wall_s": wall, "device_busy_s": busy,
+                                 "cuda_launches_per_step": per_step, "rows": MINI_FRAMES}
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            write_infant_fixture_workspace(root, tbt)
+            for dtype, ref in JAX_INFANT_FIXTURE_MPJPE_MM.items():
+                argv = ["--config", "mini", "--hypo", str(INFANT_FIXTURE_HYPO), "--dtype", dtype,
+                        "--ckpt_dir", os.path.join(tbt.FIXTURE, "checkpoint"),
+                        "--ckpt_name", "checkpoint_trained.pth",
+                        "--override", "model.hidden_dim=256", "--override", "model.embed_dim=128"]
+                out = cli_launches(sk, split, f"infant trained fixture --dtype {dtype}",
+                                   1000 if dtype == "bf16" else 0,
+                                   lambda: opt_main_infant.main(argv))
+                mm = out["mpjpe"] * 1000
+                log(f"infant trained fixture {dtype}: MPJPE {mm:.3f} mm (JAX CLI on the CPU "
+                    f"{ref:.3f} mm, tolerance {FIXTURE_TOL_MM} mm); solve {out['solve_s']:.3f} s")
+                if not abs(mm - ref) <= FIXTURE_TOL_MM:
+                    fail(f"infant trained fixture {dtype}: MPJPE {mm} vs {ref}")
+                result[f"fixture_{dtype}_mm"] = mm
+        finally:
+            os.chdir(cwd)
     return result
 
 
@@ -880,7 +1202,7 @@ def main() -> int:
         from zedo_tpu_torch import bench, presets
         from zedo_tpu_torch import bench_trained as tbt
         from zedo_tpu_torch.models import score_mlp as tsm
-        from zedo_tpu_torch.run import inference, opt_main
+        from zedo_tpu_torch.run import inference, opt_main, opt_main_infant
         from zedo_tpu_torch.ops.kernels import build
         from zedo_tpu_torch.ops.kernels import score_kernel as sk
         from zedo_tpu_torch.ops.kernels import score_kernel_split as split
@@ -923,6 +1245,10 @@ def main() -> int:
     entry["launches_batch_cli"] = batch_cli["kernel_1_launches"]
     log(f"phase batch CLI: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    infant = phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card)
+    entry["launches_infant"] = {key: infant[key]["kernel_1_launches"] for key in ("mini", "syrip")}
+    log(f"phase infant: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev)
     log(f"phase accuracy: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -936,7 +1262,7 @@ def main() -> int:
     entry["resident_blocks_per_sm"] = blocks_per_sm
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
-                      "batch_cli": batch_cli,
+                      "batch_cli": batch_cli, "infant": infant,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

@@ -232,8 +232,8 @@ def test_helpers_and_registry_match_jax():
     np.testing.assert_array_equal(tbase.normalize_data(data), jbase.normalize_data(data))
     np.testing.assert_array_equal(tbase.denormalize_data(data), jbase.denormalize_data(data))
     assert tbase.PoseDataset.get_skeleton() == jbase.PoseDataset.get_skeleton()
-    # the adult readers; the infant ones join with the infant path
-    assert set(tdata.DATASETS) == set(jdata.DATASETS) - {"mini", "syrip"}
+    # the adult readers and the infant ones
+    assert set(tdata.DATASETS) == set(jdata.DATASETS)
 
 
 def test_h36m_reader_golden(tmp_path):

@@ -34,6 +34,25 @@ def _packed(dev, hidden, gn, embed=512, groups=32):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("gn", ["bf16", "f32"])
+def test_cuda_kernel_takes_12_joints(cuda_device, gn):
+    """SyRIP's 12 joints: x of 36 columns, padded to 64 for the first
+    layer's loads, the post layer's first 36 columns written out."""
+    tcfg = tsm.ScoreMLPConfig(n_joints=12, hidden_dim=1024, embed_dim=512)
+    params = tsm.init_params(torch.Generator().manual_seed(0), tcfg, device=cuda_device)
+    packed = tsk.pack_weights(params, tcfg, dtype=torch.bfloat16, gn_dtype=GN[gn])
+    temb = tsm.time_embedding(params, tcfg, torch.full((1,), 47.3, device=cuda_device))[0]
+    vecs = tsk.step_vectors(packed, temb).contiguous()
+    gen = torch.Generator().manual_seed(2)
+    for n in (10000, 129, 1):
+        x = torch.randn(n, 36, generator=gen).to(cuda_device)
+        got = tsk.fused_score_forward(x, packed, vecs)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 36)
+        assert (got - tsk.fused_score_forward_reference(x, packed, vecs)).abs().max().item() < TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gn", ["bf16", "f32"])
 @pytest.mark.parametrize("hidden,rows", [(1024, (4096, 1001, 129, 1)), (384, (2048,)),
                                          (768, (2048,)), (2048, (2048, 77)),
                                          (256, (2048, 130)), (128, (300,)), (512, (300,))])

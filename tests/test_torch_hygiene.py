@@ -1,5 +1,6 @@
-"""zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections, no absl; asks
-for CUDA by default and raises without it; no fallback from the kernel."""
+"""zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections, no absl,
+no configs; asks for CUDA by default and raises without it; no fallback from
+the kernel."""
 import os
 import subprocess
 import sys
@@ -10,9 +11,12 @@ import torch
 
 from zedo_tpu_torch import bench_trained as tbt
 from zedo_tpu_torch import presets
+from zedo_tpu_torch.models import control_mlp as tcm
 from zedo_tpu_torch.models import score_mlp as tsm
+from zedo_tpu_torch.models import score_mlp_cond as tcond
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
 from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
+from zedo_tpu_torch.run import opt_main_infant
 from zedo_tpu_torch.serving import ZeDOEstimator, _tree_map
 from zedo_tpu_torch.zeroshot import oil as toil
 
@@ -24,9 +28,10 @@ import zedo_tpu_torch
 for m in pkgutil.walk_packages(zedo_tpu_torch.__path__, "zedo_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "zedo_tpu", "ml_collections", "absl"))
+             if m.split(".")[0] in ("jax", "zedo_tpu", "ml_collections", "absl", "configs"))
 print("MODULES", len([m for m in sys.modules if m.startswith("zedo_tpu_torch")]))
 print("BAD", bad)
+print(sorted(m for m in sys.modules if m.startswith("zedo_tpu_torch")))
 """
 
 
@@ -38,6 +43,10 @@ def test_port_imports_no_jax_no_reference_package():
     assert "BAD []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 20
+    # the infant path's modules are among them
+    for name in ("diffusion.score", "models.control_mlp", "models.score_mlp_cond",
+                 "zeroshot.infant", "data.mini_rgbd", "data.syrip", "run.opt_main_infant"):
+        assert f"zedo_tpu_torch.{name}" in out.stdout, name
 
 
 def _no_cuda():
@@ -54,6 +63,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         tsm.init_params(torch.Generator().manual_seed(0), tsm.ScoreMLPConfig(hidden_dim=128))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbt.load_fixture()
+    for module in (tcm, tcond):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.init_params(torch.Generator().manual_seed(0),
+                               tsm.ScoreMLPConfig(hidden_dim=128))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        opt_main_infant.main(["--config", "mini"])
 
 
 def test_kernel_wrapper_never_falls_back():
@@ -69,6 +84,14 @@ def test_kernel_wrapper_never_falls_back():
     for wrapper in (tsk.fused_score_forward, tsplit.fused_score_forward_split):
         with pytest.raises(ValueError, match="unsupported device"):
             wrapper(torch.zeros(4, 51, device="meta"), packed, vecs)
+    # the infant path's 12 joints (36 columns) take the same wrapper
+    cfg12 = tsm.ScoreMLPConfig(n_joints=12, hidden_dim=128, embed_dim=64)
+    params12 = tsm.init_params(torch.Generator().manual_seed(0), cfg12, device="cpu")
+    packed12 = tsk.pack_weights(params12, cfg12, gn_dtype=torch.float32)
+    vecs12 = tsk.step_vectors(packed12, torch.zeros(64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsk.fused_score_forward(torch.zeros(4, 36, device="meta"), packed12, vecs12)
+    assert not toil._kernel_eligible(_tree_map(lambda a: a.to(torch.bfloat16), params12), cfg12)
     # on the CPU the kernel path is never chosen automatically
     bf16 = _tree_map(lambda a: a.to(torch.bfloat16), params)
     assert not toil._kernel_eligible(bf16, cfg)

@@ -13,7 +13,9 @@ from zedo_tpu.zeroshot import ipo as jipo
 from zedo_tpu.zeroshot import oil as joil
 from zedo_tpu.zeroshot import pipeline as jpipe
 from zedo_tpu_torch import bench_trained as tbt
+from zedo_tpu_torch import presets
 from zedo_tpu_torch.diffusion.sampling import PCSampler as TPCSampler
+from zedo_tpu_torch.diffusion.sampling import get_sampling_fn
 from zedo_tpu_torch.diffusion.sde import SubVPSDE as TSubVPSDE
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
 from zedo_tpu_torch.serving import _tree_map
@@ -109,17 +111,27 @@ def test_solve_one_hypothesis_is_a_column_of_solve(fixture):
 
 
 def test_unported_oil_paths_raise(fixture):
+    """The OIL loop takes the PC sampler alone; the ODE sampler (the full
+    sampling surface) is refused where the CLIs build it. A corrector and
+    the reprojection trace, once refused, now run."""
     _, _, tcfg, tparams, _, k, px, clusters = fixture
     sde = TSubVPSDE(n=10, t_max=0.1)
     args = (tparams, tcfg, sde)
-    x = torch.zeros(N, 17, 3)
+    x = torch.from_numpy(np.random.RandomState(0).randn(N, 17, 3).astype(np.float32)) * 0.2
     t0 = torch.zeros(N, 1, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toil.run_oil(*args, TPCSampler(sde=sde, corrector="langevin"), x, t0,
-                     torch.tensor(px), torch.tensor(k), None, toil.OILConfig(iterations=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toil.run_oil(*args, TPCSampler(sde=sde), x, t0, torch.tensor(px), torch.tensor(k),
-                     None, toil.OILConfig(iterations=2, track_reproj=True))
+    t0[..., 2] = 4.0
+    with pytest.raises(TypeError, match="pc sampler"):
+        toil.run_oil(*args, object(), x, t0, torch.tensor(px), torch.tensor(k), None,
+                     toil.OILConfig(iterations=2))
+    config = presets.optim_config("h36m")
+    config.sampling.method = "ode"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        get_sampling_fn(config, sde, (N, 17, 3), None, 0.01)
+    sde = TSubVPSDE(n=1000, t_max=0.1)
+    res = toil.run_oil(tparams, tcfg, sde, TPCSampler(sde=sde, corrector="langevin"), x, t0,
+                       torch.tensor(px), torch.tensor(k), None,
+                       toil.OILConfig(iterations=2, track_reproj=True))
+    assert torch.isfinite(res.pose).all() and res.reproj_px.shape == (1, 2)
 
 
 def test_chip_smoke_reference_mpjpe():

@@ -49,6 +49,15 @@ def _group_indicator_np(c: int, g: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=16)
+def _group_indicator(c: int, g: int, device: torch.device) -> torch.Tensor:
+    """The indicator on `device`, copied there once: a host-to-device copy
+    of pageable memory blocks the host until the device has caught up, which
+    in a step loop (the generic OIL path's adapters) would be one host sync
+    per GroupNorm."""
+    return torch.as_tensor(_group_indicator_np(c, g), device=device)
+
+
 def group_norm(p: Params, x: torch.Tensor, num_groups: int,
                eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel axis of [..., C] (torch semantics: biased
@@ -56,7 +65,7 @@ def group_norm(p: Params, x: torch.Tensor, num_groups: int,
     the per-channel affine), computed in f32 through the group-indicator
     products of the JAX version."""
     c = x.shape[-1]
-    ind = torch.as_tensor(_group_indicator_np(c, num_groups), device=x.device)
+    ind = _group_indicator(c, num_groups, x.device)
     bcast = ind.T * (c // num_groups)
     xf = x.float()
     centered = xf - (xf @ ind) @ bcast

@@ -6,7 +6,7 @@ and print MPJPE (protocol 1) and PA-MPJPE (protocol 2) by action.
 
 Port of zedo_tpu/run/opt_main.py on one device, with the same flags plus
 `--device` (default cuda; `--device cpu` runs on the CPU). `--config` takes
-a preset name (presets.OPTIM_PRESETS) or the path of one of the files
+a preset name (h36m, 3dhp, 3dpw, ski, wild) or the path of one of the files
 configs/optim/concat_pose_optimization_<name>.py it restates; `--override
 key.path=value` changes one key. `--dtype auto` is bf16 on the card, where
 every OIL forward runs the hand-written CUDA score kernel, and fp32 on the
@@ -50,7 +50,7 @@ _CONFIG_PREFIX = "concat_pose_optimization_"
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     """The flags opt_main and inference share."""
     parser.add_argument("--config", required=True,
-                        help=f"a preset ({', '.join(presets.OPTIM_PRESETS)}) or the path of "
+                        help=f"a preset ({', '.join(CONFIG_FILES.values())}) or the path of "
                              f"configs/optim/{_CONFIG_PREFIX}<name>.py")
     parser.add_argument("--ckpt_dir", type=str)
     parser.add_argument("--ckpt_name", type=str)
@@ -81,17 +81,19 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def load_config(arg: str) -> presets.Config:
-    """A preset by name, or by the path of the configs/optim file it restates."""
-    if arg in presets.OPTIM_PRESETS:
+def load_config(arg: str, files: dict = CONFIG_FILES) -> presets.Config:
+    """A preset by name, or by the path of the configs/optim file it
+    restates; `files` maps the files' suffixes to the presets a CLI takes."""
+    names = tuple(files.values())
+    if arg in names:
         return presets.optim_config(arg)
     stem = Path(arg).stem
     suffix = stem[len(_CONFIG_PREFIX):] if stem.startswith(_CONFIG_PREFIX) else None
-    if not arg.endswith(".py") or suffix not in CONFIG_FILES:
+    if not arg.endswith(".py") or suffix not in files:
         raise ValueError(
-            f"--config {arg!r}: give a preset ({', '.join(presets.OPTIM_PRESETS)}) or one of "
-            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(CONFIG_FILES)}}}.py")
-    return presets.optim_config(CONFIG_FILES[suffix])
+            f"--config {arg!r}: give a preset ({', '.join(names)}) or one of "
+            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(files)}}}.py")
+    return presets.optim_config(files[suffix])
 
 
 def load_clusters(cluster_dir: str, dataset: str, hypo: int) -> np.ndarray:

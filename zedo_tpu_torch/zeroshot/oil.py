@@ -1,22 +1,29 @@
 """Optimization-In-the-Loop (OIL): alternate camera-ray gradient updates with
 single reverse-diffusion steps along an annealed time schedule.
 
-Port of the fast path of zedo_tpu/zeroshot/oil.py. Everything invariant
-across steps is hoisted out of the loop: camera rays, confidence weights
-and the 3x3 normal-equation inverse of the translation solve (`Geometry`),
-the per-step time embeddings (or, on the kernel path, the per-step [5, H]
-layer vectors) and the scalar coefficients c1, c2.
+Port of zedo_tpu/zeroshot/oil.py. Everything invariant across steps is
+hoisted out of the loop: camera rays, confidence weights and the 3x3
+normal-equation inverse of the translation solve (`Geometry`).
 
 The fast path specializes the shipped configuration (sub-VP SDE,
 euler_maruyama predictor, no corrector, probability flow, continuous labels
-t*999), for which the reverse update is the deterministic affine step
+t*999) with the plain ScoreMLP, for which the reverse update is the
+deterministic affine step
     x' = x + c1*x - c2*model(x, t*999)
-with c1 = 0.5*beta(t)/N and c2 = g2(t)/std(t)/N.
+with c1 = 0.5*beta(t)/N and c2 = g2(t)/std(t)/N, the per-step time
+embeddings (or, on the kernel path, the per-step [5, H] layer vectors)
+precomputed. Every other model (the ControlNet and conditional adapters, a
+`scale_by_sigma` model) or sampler takes the generic path: one
+`PCSampler.zedo_pc_step` a step through the predictor/corrector registries,
+with noise from a per-call `torch.Generator` drawn in step order.
 
 The step loop is a Python loop over device tensors with no host sync
 inside: no .item(), no .cpu(), and its only branches depend on the step
-index. With the hypotheses folded into the batch the model gets all
-[S*N, 51] rows in one kernel launch per step.
+index. The per-step diagnostics (`grad_norms`, and `reproj_px` under
+`track_reproj`) are written into device tensors allocated before the loop.
+With the hypotheses folded into the batch (`n_groups`) the model gets all
+[S*N, j*3] rows in one call per step, and each diagnostic is reduced per
+hypothesis, over its own N rows.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from zedo_tpu_torch.diffusion.sampling import PCSampler
+from zedo_tpu_torch.diffusion.score import CONTINUOUS_LABEL_SCALE, get_score_fn, split_score_fn
 from zedo_tpu_torch.diffusion.sde import SDE, SubVPSDE
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.camera import backproject_rays
@@ -35,11 +43,6 @@ from zedo_tpu_torch.ops.gradient_field import (
 )
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
 from zedo_tpu_torch.ops.linalg import inv3x3
-
-CONTINUOUS_LABEL_SCALE = 999.0  # model-facing labels are t*999 for continuous SDEs
-
-_LATER = ("waits for a later slice of the port (ROADMAP.md Queue 1, item 6: "
-          "generic OIL path and track_reproj)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +65,9 @@ class OILConfig:
     # default reduces them in the weight dtype, as the TPU kernel does, in
     # the CUDA kernel and its plain version alike
     gn_fp32: bool = False
-    # per-step reprojection trace: not ported yet
+    # record the mean |K(x+T) - cond2d| pixel reprojection error of each
+    # step, at step entry (before the T re-solve); off by default: it adds
+    # a projection of all rows to every step
     track_reproj: bool = False
 
     @property
@@ -103,9 +108,60 @@ def ray_gradient(geo: Geometry, key3d: torch.Tensor, t: torch.Tensor) -> torch.T
     return perpendicular_distance(key3d + t, geo.rays_unit)
 
 
+def reprojection_error(x: torch.Tensor, t: torch.Tensor, k: torch.Tensor,
+                       cond2d: torch.Tensor) -> torch.Tensor:
+    """[B, j, 2] |K(x + t) - cond2d| in pixels. The projection is a
+    broadcast multiply-sum over the 3-long axis, so no TF32 setting rounds
+    it (JAX computes it at Precision.HIGHEST)."""
+    proj = (k[:, None, :, :] * (x + t)[:, :, None, :]).sum(-1)
+    return (proj[..., :2] / proj[..., 2:] - cond2d[..., :2]).abs()
+
+
 class OILResult(NamedTuple):
     pose: torch.Tensor  # [B, j, 3] final root-relative pose estimate
     translation: torch.Tensor  # [B, 1, 3] final solved camera translation
+    # [G, steps] mean ray-gradient norm of each step, per group of rows
+    # (hypothesis) folded into the batch
+    grad_norms: torch.Tensor
+    # [G, steps] mean pixel reprojection error of each step at its entry
+    # under OILConfig.track_reproj, else zeros
+    reproj_px: torch.Tensor
+
+
+class _Trace:
+    """The per-step diagnostics, in device tensors allocated before the loop
+    and written by the step without a host sync. Rows are G groups of
+    B / G contiguous rows (hypothesis-major), each reduced on its own."""
+
+    def __init__(self, cfg: OILConfig, k, cond2d, n_groups: int,
+                 reproj_weight: Optional[torch.Tensor]):
+        if cond2d.shape[0] % n_groups:
+            raise ValueError(f"batch {cond2d.shape[0]} does not split into {n_groups} groups")
+        self.k, self.cond2d, self.n_groups = k, cond2d, n_groups
+        self.track_reproj = cfg.track_reproj
+        self.weight = reproj_weight
+        shape = (cfg.iterations, n_groups)
+        self.grad_norms = torch.zeros(shape, dtype=torch.float32, device=cond2d.device)
+        self.reproj_px = torch.zeros(shape, dtype=torch.float32, device=cond2d.device)
+
+    def entry(self, i: int, x, t_cur):
+        if not self.track_reproj:
+            return
+        err = reprojection_error(x, t_cur, self.k, self.cond2d)
+        if self.weight is None:
+            torch.mean(err.reshape(self.n_groups, -1), dim=1, out=self.reproj_px[i])
+        else:
+            # per-row weights summing to 1 within each group
+            rows = self.weight * err.reshape(err.shape[0], -1).mean(1)
+            torch.sum(rows.reshape(self.n_groups, -1), dim=1, out=self.reproj_px[i])
+
+    def gradient(self, i: int, grad):
+        norms = torch.linalg.vector_norm(grad, dim=-1)
+        torch.mean(norms.reshape(self.n_groups, -1), dim=1, out=self.grad_norms[i])
+
+    def result(self, x, t_cur) -> OILResult:
+        return OILResult(pose=x, translation=t_cur, grad_norms=self.grad_norms.t(),
+                         reproj_px=self.reproj_px.t())
 
 
 def _fast_supported(sde: SDE, sampler: PCSampler) -> bool:
@@ -119,24 +175,36 @@ def _fast_supported(sde: SDE, sampler: PCSampler) -> bool:
 def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
             sampler: PCSampler, x0: torch.Tensor, t0: torch.Tensor,
             cond2d: torch.Tensor, k: torch.Tensor, conf: Optional[torch.Tensor],
-            cfg: OILConfig, model_apply=None) -> OILResult:
+            cfg: OILConfig, model_apply=None, generator: Optional[torch.Generator] = None,
+            reproj_weight: Optional[torch.Tensor] = None, n_groups: int = 1) -> OILResult:
     """The full OIL loop.
 
     x0: [B, j, 3] rotated init pose; t0: [B, 1, 3] IPO translation;
-    cond2d: [B, j, >=2]; conf: [B, j] or None."""
+    cond2d: [B, j, >=2]; conf: [B, j] or None.
+    model_apply: a score_mlp.apply-compatible function (the ControlNet or
+    conditional adapter); any model but the plain ScoreMLP takes the generic
+    path. generator: the noise of the generic path (a generator on x0's
+    device; default: seeded 0); the fast path draws none.
+    reproj_weight: optional [B] per-row weights of the track_reproj trace,
+    summing to 1 within each group (None = uniform).
+    n_groups: groups (hypotheses) of B / n_groups contiguous rows folded into
+    the batch; the diagnostics come back [n_groups, steps]."""
     if not isinstance(sampler, PCSampler):
-        raise TypeError("the OIL loop requires the pc sampler")
-    if cfg.track_reproj:
-        raise NotImplementedError(f"OILConfig.track_reproj {_LATER}")
-    standard_model = ((model_apply is None or model_apply is score_mlp.apply)
-                      and not model_cfg.scale_by_sigma)
-    if not (standard_model and _fast_supported(sde, sampler)):
-        raise NotImplementedError(
-            f"this model/sampler needs the generic OIL path, which {_LATER}")
+        raise TypeError(
+            "the OIL loop requires the pc sampler (one corrector + predictor step per "
+            "iteration); the ODE sampler is only valid for full-loop sampling")
     geo = precompute_geometry(cond2d, k, conf)
     timestamps = torch.linspace(sde.T, cfg.sampling_eps, cfg.iterations,
                                 dtype=torch.float32, device=x0.device)
-    return _run_oil_fast(params, model_cfg, sde, geo, x0, t0, timestamps, cfg)
+    trace = _Trace(cfg, k, cond2d, n_groups, reproj_weight)
+    standard_model = ((model_apply is None or model_apply is score_mlp.apply)
+                      and not model_cfg.scale_by_sigma)
+    if standard_model and _fast_supported(sde, sampler):
+        return _run_oil_fast(params, model_cfg, sde, geo, x0, t0, timestamps, cfg, trace)
+    if generator is None:
+        generator = torch.Generator(device=x0.device).manual_seed(0)
+    return _run_oil_generic(params, model_cfg, sde, sampler, geo, x0, t0, timestamps, cfg,
+                            generator, model_apply or score_mlp.apply, trace)
 
 
 def _kernel_eligible(params, model_cfg) -> bool:
@@ -147,8 +215,18 @@ def _kernel_eligible(params, model_cfg) -> bool:
             and w.device.type == "cuda")
 
 
+def _geometry_step(geo: Geometry, cfg: OILConfig, trace: _Trace, i: int, x, t_cur):
+    """The step's translation re-solve and ray gradient: (x + grad, t)."""
+    trace.entry(i, x, t_cur)
+    if i >= cfg.n_fixed:
+        t_cur = solve_translation_fast(geo, x)
+    grad = ray_gradient(geo, x, t_cur)
+    trace.gradient(i, grad)
+    return x + grad, t_cur
+
+
 def _run_oil_fast(params, model_cfg, sde: SubVPSDE, geo: Geometry, x0, t0,
-                  timestamps, cfg: OILConfig) -> OILResult:
+                  timestamps, cfg: OILConfig, trace: _Trace) -> OILResult:
     # model compute dtype follows the params; geometry stays f32
     model_dtype = params["post_dense"]["weight"].dtype
     t = timestamps
@@ -188,10 +266,42 @@ def _run_oil_fast(params, model_cfg, sde: SubVPSDE, geo: Geometry, x0, t0,
     reuse = max(1, cfg.score_reuse)
     x, t_cur, out = x0, t0, None
     for i in range(cfg.iterations):
-        if i >= cfg.n_fixed:
-            t_cur = solve_translation_fast(geo, x)
-        x = x + ray_gradient(geo, x, t_cur)
+        x, t_cur = _geometry_step(geo, cfg, trace, i, x, t_cur)
         if i % reuse == 0:
             out = model_forward(x, i)
         x = x + c1[i] * x - c2[i] * out
-    return OILResult(pose=x, translation=t_cur)
+    return trace.result(x, t_cur)
+
+
+def _run_oil_generic(params, model_cfg, sde: SDE, sampler: PCSampler, geo: Geometry, x0, t0,
+                     timestamps, cfg: OILConfig, gen: torch.Generator, model_apply,
+                     trace: _Trace) -> OILResult:
+    """Any predictor and corrector of the registries, one zedo_pc_step a
+    step (the reference's dynamics exactly at score_reuse=1).
+
+    score_reuse > 1: the raw network output is evaluated every k-th step
+    and held in between; each step converts the held output into a score
+    with the CURRENT std (diffusion.score.split_score_fn, the decomposition
+    of the fast path). Within a reused step the corrector sees the held
+    output too."""
+
+    def model_fn(x, labels, condition, mask):
+        return model_apply(params, model_cfg, x, labels, condition, mask)
+
+    reuse = max(1, cfg.score_reuse)
+    score_fn = get_score_fn(sde, model_fn, continuous=sampler.continuous)
+    eval_fn, score_from_out = split_score_fn(sde, model_fn, continuous=sampler.continuous)
+    ts = timestamps.unbind(0)
+    x, t_cur, out = x0, t0, None
+    for i in range(cfg.iterations):
+        x, t_cur = _geometry_step(geo, cfg, trace, i, x, t_cur)
+        if reuse > 1:
+            if i % reuse == 0:
+                out = eval_fn(x, ts[i].expand(x.shape[0])).to(x.dtype)
+
+            def score_fn(x_, t_, condition=None, mask=None, out=out):
+                return score_from_out(out, x_, t_)
+
+        x_next, x_mean = sampler.zedo_pc_step(score_fn, gen, x, ts[i])
+        x = x_mean if sampler.denoise else x_next
+    return trace.result(x, t_cur)

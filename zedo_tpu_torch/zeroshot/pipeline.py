@@ -60,6 +60,9 @@ class ZeDOConfig:
 class SolveResult(NamedTuple):
     poses: torch.Tensor  # [N, S, j, 3]
     translations: torch.Tensor  # [N, S, 1, 3]
+    # [S, steps] per-step mean pixel reprojection error of each hypothesis
+    # when the solve ran with OILConfig.track_reproj; None otherwise
+    reproj_px: Optional[torch.Tensor] = None
 
 
 @contextlib.contextmanager
@@ -74,9 +77,15 @@ def _phase(stopwatch, name: str, device: torch.device):
             torch.cuda.synchronize(device)
 
 
+def fold(a: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
+    """A per-sample tensor [N, ...] tiled to the folded rows [S*N, ...],
+    hypothesis-major (row s*N + n is sample n)."""
+    return None if a is None else a.repeat(s, *(1,) * (a.dim() - 1))
+
+
 def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
                   cluster_poses, cond2d, conf, k, model_apply=None,
-                  stopwatch=None) -> OILResult:
+                  stopwatch=None, generator=None, reproj_weight=None) -> OILResult:
     """All hypotheses in one batch of S*N rows, hypothesis-major."""
     cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype,
                                     device=cond2d.device)
@@ -84,16 +93,15 @@ def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
     # root-center each cluster pose and broadcast it over the batch
     pose0 = cluster_poses - cluster_poses[:, 0:1, :]
     pose0 = pose0[:, None].expand(s, n, *pose0.shape[1:]).reshape(s * n, *pose0.shape[1:])
-    cond2d = cond2d.repeat(s, 1, 1)
-    k = k.repeat(s, 1, 1)
-    conf = None if conf is None else conf.repeat(s, 1)
+    cond2d, k, conf = fold(cond2d, s), fold(k, s), fold(conf, s)
 
     with _phase(stopwatch, "ipo", cond2d.device):
         ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s)
         x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
     with _phase(stopwatch, "oil", cond2d.device):
         return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
-                       cond2d, k, conf, cfg.oil, model_apply=model_apply)
+                       cond2d, k, conf, cfg.oil, model_apply=model_apply,
+                       generator=generator, reproj_weight=fold(reproj_weight, s), n_groups=s)
 
 
 def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
@@ -110,16 +118,26 @@ def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
 def solve(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
           sampler: PCSampler, cfg: ZeDOConfig, cluster_poses: torch.Tensor,
           cond2d: torch.Tensor, conf: Optional[torch.Tensor], k: torch.Tensor,
-          model_apply=None, stopwatch=None) -> SolveResult:
+          model_apply=None, stopwatch=None, generator=None,
+          reproj_weight=None) -> SolveResult:
     """All S hypotheses [S, j, 3] over cond2d [N, j, >=2], k [N, 3, 3];
-    returns [N, S, j, 3] poses and [N, S, 1, 3] translations.
+    returns [N, S, j, 3] poses, [N, S, 1, 3] translations and, under
+    OILConfig.track_reproj, the [S, steps] reprojection trace.
 
     stopwatch: an optional utils.profiling.Stopwatch that times IPO and OIL
-    as its phases "ipo" and "oil", each ending in a device synchronize."""
-    s, n = len(cluster_poses), cond2d.shape[0]
+    as its phases "ipo" and "oil", each ending in a device synchronize.
+    generator: the noise of the generic OIL path; reproj_weight: optional
+    [N] per-sample weights of the trace, summing to 1."""
     res = _solve_folded(params, model_cfg, sde, sampler, cfg, cluster_poses,
-                        cond2d, conf, k, model_apply, stopwatch)
+                        cond2d, conf, k, model_apply, stopwatch, generator, reproj_weight)
+    return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
+
+
+def unfold_result(res: OILResult, s: int, track_reproj: bool) -> SolveResult:
+    """The OIL result of S*N folded rows as [N, S, ...]."""
+    n = res.pose.shape[0] // s
     return SolveResult(
         poses=res.pose.reshape(s, n, *res.pose.shape[1:]).transpose(0, 1),
         translations=res.translation.reshape(s, n, 1, 3).transpose(0, 1),
+        reproj_px=res.reproj_px if track_reproj else None,
     )
