@@ -62,7 +62,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   9. the kernel tooling path, each entry point with the launch counts set to
      0 before it and checked after it: tools.bench_kernel --split (the path
      of kernel #2), tools.validate_dtype, bench (the headline at 886 x 50)
-     and bench --trained against the JAX package's values.
+     and bench --trained against the JAX package's values;
+ 10. the training path at the published width (dropout 0.1), each entry
+     point with the launch counts set to 0 before it and checked after it
+     (it launches neither kernel): run.train_pose_mini --config mini at its
+     batch of 5,000 on a synthetic MINI-RGBD workspace of 20,000 training
+     and 1,024 validation frames, 2 epochs in fp32 and in bf16 (finite
+     losses, parameters and EMA moved, an eval epoch with its sampling,
+     Mahalanobis and micro solve, a checkpoint), a resume from that
+     checkpoint at its epoch and step, the checkpoint through run.sample
+     and run.opt_main_infant (kernel #1 on all 1000 OIL forwards), --model
+     control fine-tuned from it (the trunk bit-equal, the adapter leaves
+     moved) and --model cond; tools.bench_train at 50,000 rows, fp32 and
+     bf16, with the device's busy share of a step;
+ 11. the sampling surface on seeded hidden-1024 weights (h36m config, the
+     full 1000-step schedule), no kernel: run.sample --task gen at 10,000
+     rows, comp3d --jlist 14,15,16 (the known joints end at the
+     condition's marginal mean at eps) and den on those samples, --sampler
+     ode at 1,024 (its NFE), --guide sym and --guide match at 1,024.
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -1192,6 +1209,210 @@ def phase_tooling(torch, sk, split, bench, bench_kernel, validate_dtype):
     return split_launches, headline
 
 
+# the training phase: MINI-RGBD at the mini config's own batch of 5,000 rows,
+# 20,000 training frames (4 steps an epoch) and 1,024 validation frames (the
+# eval metrics' cap); the sampling phase at H36M's eval batch of 10,000 rows
+TRAIN_FRAMES, TRAIN_VAL_FRAMES, TRAIN_BATCH = 20000, 1024, 5000
+SAMPLE_GEN, SAMPLE_ODE, SAMPLE_GUIDE = 10000, 1024, 1024
+BENCH_TRAIN_ROWS, BENCH_TRAIN_STEPS = 50000, 20
+
+
+def flat_params(tree):
+    """{state_dict name: leaf} of a params dict, detached."""
+    from zedo_tpu_torch.models.nn import tree_to_flat
+
+    return {k: v.detach() for k, v in tree_to_flat(tree).items()}
+
+
+def phase_training(torch, sk, split, tsm, card):
+    """The training path at the published width (hidden 1024, embed 512, 2
+    blocks, dropout 0.1), each entry point with the launch counts set to 0
+    before it and checked after it (the training path launches neither
+    kernel): run.train_pose_mini --config mini on a synthetic MINI-RGBD
+    workspace for 2 epochs in fp32 and in bf16 (finite losses, parameters
+    and EMA moved, an eval epoch with sampling and the micro solve), a
+    resume from the fp32 run's checkpoint at its epoch and step, the
+    checkpoint through run.sample and run.opt_main_infant (kernel #1 on
+    every OIL forward), --model control fine-tuned from it (trunk and frozen
+    leaves bit-equal, adapter leaves moved), --model cond; then
+    tools.bench_train at 50,000 rows."""
+    from zedo_tpu_torch.models import control_mlp
+    from zedo_tpu_torch.run import opt_main_infant, sample, train_pose_mini
+    from zedo_tpu_torch.tools import bench_train
+    from zedo_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    result = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            write_mini_workspace(root, np.random.RandomState(3), TRAIN_VAL_FRAMES,
+                                 n_train=TRAIN_FRAMES)
+            cfg = tsm.ScoreMLPConfig(dropout=0.1)
+            init = flat_params(tsm.init_params(torch.Generator().manual_seed(42), cfg,
+                                               device="cpu"))
+
+            def train(name, *flags):
+                argv = ["--config", "mini", "--epochs", "2", "--log_name", name, "--override",
+                        f"OUTPUT_DIR={root}/output", *flags]
+                t0 = time.perf_counter()
+                out, counts = counted(sk, split, f"run.train_pose_mini {' '.join(flags)}",
+                                      lambda: train_pose_mini.main(argv))
+                wall = time.perf_counter() - t0
+                if any(counts.values()):
+                    fail(f"train {name}: kernel launches {counts} on the training path")
+                hist = np.asarray(out["history"])
+                if not np.isfinite(hist).all():
+                    fail(f"train {name}: losses {hist}")
+                log(f"train {name} on {card}: {out['state'].step} steps of {TRAIN_BATCH} rows, "
+                    f"losses by epoch {hist.tolist()}, eval {out['eval_history']}, CLI "
+                    f"wall-clock {wall:.3f} s")
+                result[name] = {"steps": out["state"].step, "losses": hist.tolist(),
+                                "eval": out["eval_history"], "wall_s": wall}
+                return out
+
+            runs = {}
+            for dtype in ("fp32", "bf16"):
+                out = runs[dtype] = train(dtype, "--compute_dtype", dtype)
+                if out["state"].step != 2 * TRAIN_FRAMES // TRAIN_BATCH:
+                    fail(f"train {dtype}: {out['state'].step} steps")
+                ev = out["eval_history"][0]
+                if not (np.isfinite(ev["prior_mahalanobis"])
+                        and np.isfinite(ev["zeroshot_mpjpe_mm"])):
+                    fail(f"train {dtype}: eval {ev}")
+                for label, tree in (("params", out["state"].params),
+                                    ("EMA", out["state"].ema.shadow_params)):
+                    now = flat_params(tree)
+                    if all(torch.equal(now[k].cpu(), init[k]) for k in init if k != "sigmas"):
+                        fail(f"train {dtype}: the {label} did not move")
+            ckpt_dir = runs["fp32"]["output_dir"]
+            ckpt = os.path.join(ckpt_dir, "checkpoint_0.pth")
+            if not os.path.exists(ckpt):
+                fail(f"no checkpoint {ckpt}")
+            resumed = train("resumed", "--restore_dir", ckpt)
+            full = runs["fp32"]["state"]
+            if resumed["state"].step != full.step or len(resumed["history"]) != 1:
+                fail(f"resume: step {resumed['state'].step}, epochs {len(resumed['history'])}")
+            a, b = flat_params(resumed["state"].params), flat_params(full.params)
+            diff = max((a[k] - b[k]).abs().max().item() for k in b)
+            log(f"resume from {ckpt} at epoch 1, step {full.step // 2}: its final parameters "
+                f"{diff:.3g} from the uninterrupted run's (max abs)")
+            if not diff <= 1e-4:
+                fail(f"resume: parameters {diff} from the uninterrupted run's")
+            result["resume_max_abs_diff"] = diff
+
+            out, counts = counted(sk, split, "run.sample on the trained checkpoint", lambda: (
+                sample.main(["--config", "mini", "--ckpt_dir", ckpt_dir, "--ckpt_name",
+                             "checkpoint_0.pth", "--num", str(SAMPLE_ODE), "--ema",
+                             "--save", "trained_samples.npy"])))
+            if any(counts.values()) or not torch.isfinite(out["samples"]).all():
+                fail(f"run.sample on the trained checkpoint: launches {counts}")
+            out = cli_launches(sk, split, "run.opt_main_infant on the trained checkpoint", 1000,
+                               lambda: opt_main_infant.main(["--config", "mini", "--ckpt_dir",
+                                                             ckpt_dir, "--ckpt_name",
+                                                             "checkpoint_0.pth", "--hypo", "1"]))
+            if not np.isfinite(out["mpjpe"]):
+                fail(f"run.opt_main_infant on the trained checkpoint: MPJPE {out['mpjpe']}")
+            log(f"trained checkpoint through run.opt_main_infant: MPJPE {out['mpjpe'] * 1000:.3f} "
+                f"mm on {TRAIN_VAL_FRAMES} frames, solve {out['solve_s']:.3f} s")
+
+            control = train("control", "--model", "control", "--fine_tune", "--fine_tune_ckpt",
+                            ckpt, "--epochs", "1")
+            trunk = flat_params(load_torch_checkpoint(ckpt, cfg)["params"])
+            tuned = flat_params(control["state"].params)
+            cinit = flat_params(control_mlp.init_params(torch.Generator().manual_seed(42), cfg,
+                                                        device="cpu"))
+            moved, frozen = [], 0
+            for name, value in tuned.items():
+                if not ("copy" in name or "zc" in name or name == "infant_cond"):
+                    if not torch.equal(value, trunk[name]):
+                        fail(f"control: frozen leaf {name} moved")
+                    frozen += 1
+                    continue
+                # a copy leaf starts as its trunk leaf, the others as drawn
+                start = trunk[name.replace("_copy", "")] if "_copy" in name \
+                    else cinit[name].to(value.device)
+                if not torch.equal(value, start):
+                    moved.append(name)
+            log(f"control: {frozen} frozen leaves bit-equal to the checkpoint's trunk, "
+                f"{len(moved)} of {len(tuned) - frozen} adapter leaves moved (dense2_copy and "
+                f"the last block's gnorm2_copy feed no output)")
+            must = [n for n in tuned if n.startswith("zc") or n == "infant_cond"
+                    or n.startswith("pre_dense_copy")]
+            if not set(must) <= set(moved):
+                fail(f"control: adapter leaves {sorted(set(must) - set(moved))} did not move")
+            result["control"].update(frozen_bit_equal=frozen, adapter_moved=len(moved))
+            train("cond", "--model", "cond", "--epochs", "1")
+        finally:
+            os.chdir(cwd)
+    records, counts = counted(sk, split, f"tools.bench_train --rows {BENCH_TRAIN_ROWS}",
+                              lambda: bench_train.main(["--rows", str(BENCH_TRAIN_ROWS),
+                                                        "--steps", str(BENCH_TRAIN_STEPS)]))
+    if any(counts.values()):
+        fail(f"bench_train: kernel launches {counts}")
+    for r in records:
+        busy = r["device_busy_share"]
+        log(f"bench_train {r['dtype']} on {card}: {r['ms_per_step']:.3f} ms a step of "
+            f"{r['rows']} rows, {r['rows_per_s']:.0f} rows/s, device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f}'} of a step")
+    result["bench_train"] = records
+    return result
+
+
+def phase_sampling(torch, sk, split, tsm, card):
+    """run.sample on seeded hidden-1024 weights (the h36m config, full
+    1000-step schedule), each run with the launch counts set to 0 before it
+    and checked after it (no kernel): --task gen at the config's
+    eval.batch_size of 10,000; comp3d --jlist 14,15,16 on those samples (the
+    known joints end at the condition's marginal mean at eps) and den;
+    --sampler ode at 1,024 (its NFE); --guide sym and --guide match."""
+    from zedo_tpu_torch.run import sample
+
+    result = {}
+    with tempfile.TemporaryDirectory() as root:
+        save_pth(torch, tsm.init_params(torch.Generator().manual_seed(0), tsm.ScoreMLPConfig(),
+                                        device="cpu"), os.path.join(root, "seeded.pth"))
+
+        def run(name, n, *flags):
+            argv = ["--config", "h36m", "--ckpt_dir", root, "--ckpt_name", "seeded.pth",
+                    "--save", os.path.join(root, f"{name}.npy"), *flags]
+            out, counts = counted(sk, split, f"run.sample {' '.join(flags)}",
+                                  lambda: sample.main(argv))
+            samples = out["samples"]
+            if any(counts.values()) or tuple(samples.shape) != (n, 17, 3) \
+                    or not torch.isfinite(samples).all():
+                fail(f"run.sample {name}: launches {counts}, shape {tuple(samples.shape)}")
+            log(f"run.sample {name} on {card}: {n} samples in {out['seconds']:.3f} s "
+                f"({n / out['seconds']:.1f} samples/s)"
+                + (f", nfe {out['nfe']}" if out["nfe"] is not None else ""))
+            result[name] = {"n": n, "s": out["seconds"], "samples_per_s": n / out["seconds"],
+                            "nfe": out["nfe"]}
+            return samples
+
+        gen = run("gen", SAMPLE_GEN, "--task", "gen", "--num", str(SAMPLE_GEN))
+        poses = gen.cpu().numpy()
+        np.save(os.path.join(root, "poses.npy"), poses)
+        comp = run("comp3d", SAMPLE_GEN, "--task", "comp3d", "--jlist", "14,15,16", "--input",
+                   os.path.join(root, "poses.npy")).cpu().numpy()
+        # the known joints end at the condition's sub-VP marginal mean at
+        # t = eps = 1e-3: the condition times exp(-(eps^2 (20 - 0.1) / 4 + eps 0.1 / 2))
+        known = [j for j in range(17) if j not in (14, 15, 16)]
+        want = poses[:, known] * np.exp(-(0.25 * 1e-6 * 19.9 + 0.5 * 1e-3 * 0.1))
+        err = np.abs(comp[:, known] - want).max() / max(1.0, np.abs(want).max())
+        log(f"comp3d: the known joints end {err:.3g} from the condition's marginal mean at "
+            f"eps (max abs, relative to the largest coordinate)")
+        if not err <= 1e-5:
+            fail(f"comp3d: known joints {err} from the condition's marginal mean")
+        result["comp3d"]["known_rel_err"] = float(err)
+        run("den", SAMPLE_GEN, "--task", "den", "--input", os.path.join(root, "poses.npy"))
+        run("ode", SAMPLE_ODE, "--sampler", "ode", "--num", str(SAMPLE_ODE))
+        run("guide_sym", SAMPLE_GUIDE, "--num", str(SAMPLE_GUIDE), "--guide", "sym")
+        np.save(os.path.join(root, "targets.npy"), poses[:SAMPLE_GUIDE, :, :2])
+        run("guide_match", SAMPLE_GUIDE, "--num", str(SAMPLE_GUIDE), "--guide", "match",
+            "--guide_input", os.path.join(root, "targets.npy"))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1255,6 +1476,12 @@ def main() -> int:
     entry_split["launches"], headline = phase_tooling(torch, sk, split, bench, bench_kernel,
                                                       validate_dtype)
     log(f"phase tooling: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training = phase_training(torch, sk, split, tsm, card)
+    log(f"phase training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sampling = phase_sampling(torch, sk, split, tsm, card)
+    log(f"phase sampling: {time.perf_counter() - t0:.1f} s")
     for e in (entry, entry_split):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
@@ -1262,7 +1489,8 @@ def main() -> int:
     entry["resident_blocks_per_sm"] = blocks_per_sm
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
-                      "batch_cli": batch_cli, "infant": infant,
+                      "batch_cli": batch_cli, "infant": infant, "training": training,
+                      "sampling": sampling,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

@@ -23,6 +23,7 @@ from zedo_tpu.zeroshot.pipeline import ZeDOConfig as JZeDOConfig
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.diffusion.sampling import get_sampling_fn
 from zedo_tpu_torch.diffusion.sde import build_sde
+from zedo_tpu_torch.models import nn as tnn
 from zedo_tpu_torch.models.registry import make_mlp_config
 from zedo_tpu_torch.run import inference as tinf
 from zedo_tpu_torch.run import opt_main as topt
@@ -126,9 +127,8 @@ def test_unported_choices_raise():
         build_sde("cld")
     sde = build_sde("subvpsde")
     c = presets.optim_config("h36m")
-    c.sampling.method = "ode"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_sampling_fn(c, sde, (1, 17, 3), None, 0.01)
+    c.sampling.method = "ode"  # ported since the full sampling surface
+    assert type(get_sampling_fn(c, sde, (1, 17, 3), None, 0.01)).__name__ == "ODESampler"
     for key, value in (("method", "ddim"), ("predictor", "heun"), ("corrector", "nuts")):
         c = presets.optim_config("h36m")
         c.sampling[key] = value
@@ -362,3 +362,95 @@ def test_chip_smoke_cli_reference():
     for dtype, (p1, p2) in smoke.JAX_CLI_FIXTURE_MM.items():
         _, jp1, jp2 = _jax_cli(smoke.CLI_FIXTURE_HYPO, dtype=dtype, short=False)
         assert abs(jp1 - p1) < 1e-2 and abs(jp2 - p2) < 1e-2, (dtype, jp1, jp2)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+TINY = ["model.hidden_dim=64", "model.embed_dim=32", "model.n_blocks=1", "model.num_scales=20",
+        "training.batch_size=16", "eval.batch_size=8"]
+
+
+def _train(root, *flags, name="run"):
+    from zedo_tpu_torch.run import train_pose_mini
+
+    argv = ["--config", "mini", "--device", "cpu", "--epochs", "2", "--log_name", name]
+    for item in TINY + [f"OUTPUT_DIR={root}/output"]:
+        argv += ["--override", item]
+    return train_pose_mini.main(argv + list(flags))
+
+
+def _flat_params(tree):
+    return {k: v.detach() for k, v in tnn.tree_to_flat(tree).items()}
+
+
+def test_train_cli_on_a_mini_workspace(tmp_path, monkeypatch, capsys):
+    """run.train_pose_mini on a synthetic MINI-RGBD workspace: two epochs
+    with an eval epoch (finite Mahalanobis and micro-solve MPJPE), a
+    checkpoint that run.sample and run.opt_main_infant read, a resume equal
+    to the uninterrupted run, the ControlNet adapter
+    fine-tuned from the checkpoint with its trunk frozen, the conditional
+    prior, and the refusals."""
+    from zedo_tpu_torch.models import control_mlp as tcm
+    from zedo_tpu_torch.run import opt_main_infant, sample
+    from zedo_tpu_torch.run import train_pose_mini
+
+    monkeypatch.chdir(tmp_path)
+    _chip_smoke().write_mini_workspace(str(tmp_path), np.random.RandomState(0), 12, n_train=40)
+    out = _train(tmp_path)
+    state, ckpt = out["state"], os.path.join(out["output_dir"], "checkpoint_0.pth")
+    assert state.step == 4 and len(out["history"]) == 2 and np.isfinite(out["history"]).all()
+    assert set(out["eval_history"][0]) == {"prior_mahalanobis", "zeroshot_mpjpe_mm"}
+    assert np.isfinite(list(out["eval_history"][0].values())).all()
+    assert np.load(os.path.join(out["output_dir"], "results_0.npy")).shape == (8, 17, 3)
+
+    capsys.readouterr()
+    resumed = _train(tmp_path, "--restore_dir", ckpt, name="resumed")
+    assert "at epoch 1, step 2" in capsys.readouterr().err
+    assert resumed["state"].step == state.step and len(resumed["history"]) == 1
+    got, want = _flat_params(resumed["state"].params), _flat_params(state.params)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+    sampled = sample.main(["--config", "mini", "--device", "cpu", "--ckpt_dir",
+                           out["output_dir"], "--ckpt_name", "checkpoint_0.pth", "--num", "4",
+                           "--save", str(tmp_path / "s.npy"), "--ema",
+                           *sum((["--override", o] for o in TINY), [])])
+    assert torch.isfinite(sampled["samples"]).all()
+    solved = opt_main_infant.main(["--config", "mini", "--device", "cpu", "--ckpt_dir",
+                                   out["output_dir"], "--ckpt_name", "checkpoint_0.pth",
+                                   *sum((["--override", o] for o in TINY + [
+                                       "ZeDO.IPO_iterations=5", "ZeDO.OIL_iterations=5"]), [])])
+    assert np.isfinite(solved["mpjpe"])
+
+    control = _train(tmp_path, "--model", "control", "--fine_tune", "--fine_tune_ckpt", ckpt,
+                     "--epochs", "1", name="control")
+    tuned = _flat_params(control["state"].params)
+    trunk = _flat_params(tckpt.load_torch_checkpoint(ckpt, state_cfg(), device="cpu")["params"])
+    for name, value in tuned.items():
+        if name in trunk:
+            assert torch.equal(value, trunk[name]), name
+    # the adapter's own leaves moved from where the fine-tune started them
+    init = _flat_params(tcm.init_params(torch.Generator().manual_seed(42), state_cfg(),
+                                        device="cpu"))
+    for name in ("zc_layer_2.weight", "infant_cond"):
+        assert not torch.equal(tuned[name], init[name]), name
+    assert not torch.equal(tuned["pre_dense_copy.weight"], trunk["pre_dense.weight"])
+    cond = _train(tmp_path, "--model", "cond", "--epochs", "1", "--rotflip", name="cond")
+    assert np.isfinite(cond["history"]).all()
+
+    for flags, err, msg in ((["--mesh", "dp2"], NotImplementedError, "item 15"),
+                            (["--model", "cond", "--aug"], SystemExit, "--aug"),
+                            (["--fine_tune"], ValueError, "--fine_tune_ckpt")):
+        with pytest.raises(err, match=msg):
+            _train(tmp_path, *flags, name="refused")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_pose_mini.main(["--config", "mini"])
+
+
+def state_cfg():
+    return make_mlp_config(tconfig.apply_overrides(presets.optim_config("mini"), TINY))

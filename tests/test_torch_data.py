@@ -301,3 +301,84 @@ def test_ski_reader_golden(tmp_path):
     mine = tdata.skiPose(str(tmp_path), "test", gt2d=True, abs_coord=True)
     for name in ARRAYS:
         np.testing.assert_allclose(getattr(mine, name), want[name], rtol=1e-5, err_msg=name)
+
+
+def _train_pair(root, **kw):
+    """The port's and JAX's H36M readers on the same train split, each with
+    its own RandomState(3)."""
+    items = _h36m(root)
+    with open(os.path.join(root, "h36m_train.pkl"), "wb") as f:
+        pickle.dump(items, f)
+    return (tdata.H36MDataset3D(root, "train", gt2d=True, rng=np.random.RandomState(3), **kw),
+            jdata.H36MDataset3D(root, "train", gt2d=True, rng=np.random.RandomState(3), **kw))
+
+
+@pytest.mark.parametrize("flip,rot", [(True, False), (False, True), (True, True)])
+def test_augmentations_equal_jax(tmp_path, flip, rot):
+    """augment_batch, augment_batch_cond, __getitem__'s flips and rotations
+    and add_noise give the JAX package's arrays exactly for the same
+    RandomState."""
+    mine, ref = _train_pair(str(tmp_path), flip=flip, rot=rot, rep=2, cond_3d_prob=0.3)
+    assert len(mine) == len(ref) == 60
+    batch = np.asarray(ref.db_3d[:20])
+    cond = np.random.RandomState(5).randn(20, 17, 2).astype(np.float32)
+    for seed in (0, 1):
+        np.testing.assert_array_equal(
+            mine.augment_batch(batch, np.random.RandomState([seed, 2])),
+            ref.augment_batch(batch, np.random.RandomState([seed, 2])))
+        got = mine.augment_batch_cond(batch, cond, np.random.RandomState(seed))
+        want = ref.augment_batch_cond(batch, cond, np.random.RandomState(seed))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    for idx in range(0, 60, 7):
+        for a, b in zip(mine[idx], ref[idx]):
+            np.testing.assert_array_equal(a, b)
+    for kind in ("gaussian", "uniform"):
+        np.testing.assert_array_equal(mine.add_noise(cond, 3, kind), ref.add_noise(cond, 3, kind))
+    with pytest.raises(NotImplementedError):
+        mine.add_noise(cond, 3, "laplace")
+    if flip:
+        with pytest.raises(ValueError, match="conditions"):
+            mine.augment_batch_cond(batch, cond[:3], np.random.RandomState(0))
+    # the test subset is never augmented
+    mine.subset = "test"
+    assert mine.augment_batch(batch, np.random.RandomState(0)) is batch
+
+
+def test_concat_and_dataset_eval_equal_jax(tmp_path):
+    """ConcatDataset's arrays, items and augmentation delegation, and the
+    training evaluations over another dataset's GT items."""
+    from zedo_tpu.data import concat as jconcat
+    from zedo_tpu.train import trainer as jtrainer
+    from zedo_tpu_torch.data import concat as tconcat
+    from zedo_tpu_torch.train import trainer as ttrainer
+
+    root = str(tmp_path)
+    a, ja = _train_pair(root, flip=True)
+    b = tdata.H36MDataset3D(root, "test", gt2d=True, flip=True)
+    jb = jdata.H36MDataset3D(root, "test", gt2d=True, flip=True)
+    mine, ref = tconcat.ConcatDataset([a, b]), jconcat.ConcatDataset([ja, jb])
+    for name in ("db_2d", "db_3d", "camera_param"):
+        np.testing.assert_array_equal(getattr(mine, name), getattr(ref, name), err_msg=name)
+    assert len(mine) == len(ref) == 60 and len(mine.gt_dataset) == 60
+    for idx in (0, 29, 30, 59):
+        for x, y in zip(mine[idx], ref[idx]):
+            np.testing.assert_array_equal(x, y)
+    with pytest.raises(IndexError):
+        mine[60]
+    batch = np.asarray(ref.db_3d[:10])
+    np.testing.assert_array_equal(mine.augment_batch(batch, np.random.RandomState(1)),
+                                  ref.augment_batch(batch, np.random.RandomState(1)))
+    b.flip = False
+    with pytest.raises(ValueError, match="disagree"):
+        mine.augment_batch(batch, np.random.RandomState(1))
+
+    preds = np.random.RandomState(2).randn(30, 17, 3).astype(np.float32) * 0.2
+    for protocol2 in (False, True):
+        np.testing.assert_allclose(b.dataset_eval(preds, b, protocol2=protocol2),
+                                   jb.dataset_eval(preds, jb, protocol2=protocol2), rtol=1e-5)
+        np.testing.assert_allclose(
+            ttrainer.dataset_eval(np.concatenate([preds, preds]), mine, protocol2=protocol2,
+                                  concate=True, sample_interval=3),
+            jtrainer.dataset_eval(np.concatenate([preds, preds]), ref, protocol2=protocol2,
+                                  concate=True, sample_interval=3), rtol=1e-5)

@@ -12,12 +12,13 @@ import torch
 from zedo_tpu_torch import bench_trained as tbt
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.models import control_mlp as tcm
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.models import score_mlp as tsm
 from zedo_tpu_torch.models import score_mlp_cond as tcond
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
 from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
 from zedo_tpu_torch.run import opt_main_infant
-from zedo_tpu_torch.serving import ZeDOEstimator, _tree_map
+from zedo_tpu_torch.serving import ZeDOEstimator
 from zedo_tpu_torch.zeroshot import oil as toil
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,9 +44,12 @@ def test_port_imports_no_jax_no_reference_package():
     assert "BAD []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 20
-    # the infant path's modules are among them
+    # the infant path's and the training path's modules are among them
     for name in ("diffusion.score", "models.control_mlp", "models.score_mlp_cond",
-                 "zeroshot.infant", "data.mini_rgbd", "data.syrip", "run.opt_main_infant"):
+                 "zeroshot.infant", "data.mini_rgbd", "data.syrip", "run.opt_main_infant",
+                 "diffusion.losses", "diffusion.ema", "diffusion.ode", "diffusion.guidance",
+                 "train.trainer", "run.train_pose_mini", "run.sample", "tools.bench_train",
+                 "data.concat", "models.registry"):
         assert f"zedo_tpu_torch.{name}" in out.stdout, name
 
 
@@ -91,9 +95,9 @@ def test_kernel_wrapper_never_falls_back():
     vecs12 = tsk.step_vectors(packed12, torch.zeros(64))
     with pytest.raises(ValueError, match="unsupported device"):
         tsk.fused_score_forward(torch.zeros(4, 36, device="meta"), packed12, vecs12)
-    assert not toil._kernel_eligible(_tree_map(lambda a: a.to(torch.bfloat16), params12), cfg12)
+    assert not toil._kernel_eligible(tree_map(lambda a: a.to(torch.bfloat16), params12), cfg12)
     # on the CPU the kernel path is never chosen automatically
-    bf16 = _tree_map(lambda a: a.to(torch.bfloat16), params)
+    bf16 = tree_map(lambda a: a.to(torch.bfloat16), params)
     assert not toil._kernel_eligible(bf16, cfg)
     before = tsk.launch_counts["fused_score_forward"]
     out = tsk.fused_score_forward(torch.zeros(4, 51), packed, vecs)

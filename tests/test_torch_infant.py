@@ -215,9 +215,21 @@ def test_infant_readers_match_jax_and_golden(tmp_path, monkeypatch):
             np.testing.assert_allclose(getattr(mine, name), want_syrip[subset][name], rtol=1e-6)
     with pytest.raises(ValueError, match="num_joint=12 only"):
         tsyrip.syrip(subset="train", num_joint=17)
-    for reader in (tmini.mini_rgbd, tsyrip.syrip):
-        with pytest.raises(NotImplementedError, match="items 13 and 14"):
-            reader(aug=True)
+    # aug=True: the prior-only rows, each shrunk by a draw of the dataset's
+    # RandomState, the same for the same state
+    rs = np.random.RandomState(4)
+    np.save("aug_mini.npy", rs.randn(5, 17, 3).astype(np.float32))
+    np.save("cls_aug_data.npy", rs.randn(3, 12, 3).astype(np.float32))
+    for mine, ref in ((tmini.mini_rgbd(aug=True, rng=np.random.RandomState(9)),
+                       jdata.mini_rgbd(aug=True, rng=np.random.RandomState(9))),
+                      (tsyrip.syrip(num_joint=12, aug=True, rng=np.random.RandomState(9)),
+                       jdata.syrip(num_joint=12, aug=True, rng=np.random.RandomState(9)))):
+        for name in ("db_2d", "db_3d", "camera_param", "frame_name"):
+            np.testing.assert_array_equal(getattr(mine, name), getattr(ref, name), err_msg=name)
+        assert len(mine) == len(ref)
+        for idx in (0, len(mine) - 1):
+            for a, b in zip(mine[idx], ref[idx]):
+                np.testing.assert_array_equal(a, b)
     assert (tmini.SMIL_TO_H36M, tmini.CHANGE_TO_12, tmini.MINI_K) == (
         jmini.SMIL_TO_H36M, jmini.CHANGE_TO_12, jmini.MINI_K)
     assert (tsyrip.CHANGE_2D, tsyrip.CHANGE_12) == (jsyrip.CHANGE_2D, jsyrip.CHANGE_12)

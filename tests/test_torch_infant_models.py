@@ -101,8 +101,10 @@ def test_control_init_and_mask_match_jax():
         for leaf in ("weight", "bias"):
             np.testing.assert_array_equal(tl[f"{name}_copy.{leaf}"], tl[f"{name}.{leaf}"])
     assert dict(leaves(tcm.trainable_mask(tparams))) == dict(leaves(jcm.trainable_mask(jparams)))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcm.apply(tparams, tcfg, torch.zeros(2, 17, 3), torch.ones(2), train=True)
+    # the train path (dropout from the generator passed in; tests/test_torch_train.py)
+    out = tcm.apply(tparams, tcfg, torch.zeros(2, 17, 3), torch.ones(2), train=True,
+                    generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 17, 3) and torch.isfinite(out).all()
 
 
 def cond_cases(n_joints, seed=1):
@@ -159,8 +161,10 @@ def test_cond_null_condition_and_guidance():
     assert tcond.CondMaskConfig() == tcond.CondMaskConfig(0.0, 0.0, 0.0)
     tparams = tcond.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
     assert {k: v.shape for k, v in leaves(tparams)} == {k: v.shape for k, v in leaves(jparams)}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcond.apply(params, tcfg, xt, lt, train=True)
+    # the train path (condition masking and dropout; tests/test_torch_train.py)
+    out = tcond.apply(params, tcfg, xt, lt, train=True,
+                      generator=torch.Generator().manual_seed(0))
+    assert out.shape == xt.shape and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("model", ["control", "cond"])

@@ -18,7 +18,7 @@ from zedo_tpu_torch.diffusion.sampling import PCSampler as TPCSampler
 from zedo_tpu_torch.diffusion.sampling import get_sampling_fn
 from zedo_tpu_torch.diffusion.sde import SubVPSDE as TSubVPSDE
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.zeroshot import ipo as tipo
 from zedo_tpu_torch.zeroshot import oil as toil
 from zedo_tpu_torch.zeroshot import pipeline as tpipe
@@ -54,7 +54,7 @@ def _torch_solve(fx, bf16=False, **oil_kw):
     sampler = TPCSampler(sde=sde, eps=0.01)
     zcfg = tpipe.ZeDOConfig(ipo=tipo.IPOConfig(iterations=IPO_ITERS),
                             oil=toil.OILConfig(iterations=OIL_ITERS, **oil_kw))
-    params = _tree_map(lambda a: a.to(torch.bfloat16), tparams) if bf16 else tparams
+    params = tree_map(lambda a: a.to(torch.bfloat16), tparams) if bf16 else tparams
     res = tpipe.solve(params, tcfg, sde, sampler, zcfg, torch.tensor(clusters),
                       torch.tensor(px), None, torch.tensor(k))
     return res.poses.numpy(), res.translations.numpy()
@@ -111,9 +111,9 @@ def test_solve_one_hypothesis_is_a_column_of_solve(fixture):
 
 
 def test_unported_oil_paths_raise(fixture):
-    """The OIL loop takes the PC sampler alone; the ODE sampler (the full
-    sampling surface) is refused where the CLIs build it. A corrector and
-    the reprojection trace, once refused, now run."""
+    """The OIL loop takes the PC sampler alone; the ODE sampler that
+    get_sampling_fn builds for method 'ode' is refused by it. A corrector
+    and the reprojection trace, once refused, now run."""
     _, _, tcfg, tparams, _, k, px, clusters = fixture
     sde = TSubVPSDE(n=10, t_max=0.1)
     args = (tparams, tcfg, sde)
@@ -125,8 +125,9 @@ def test_unported_oil_paths_raise(fixture):
                      toil.OILConfig(iterations=2))
     config = presets.optim_config("h36m")
     config.sampling.method = "ode"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_sampling_fn(config, sde, (N, 17, 3), None, 0.01)
+    with pytest.raises(TypeError, match="pc sampler"):
+        toil.run_oil(*args, get_sampling_fn(config, sde, (N, 17, 3), None, 0.01), x, t0,
+                     torch.tensor(px), torch.tensor(k), None, toil.OILConfig(iterations=2))
     sde = TSubVPSDE(n=1000, t_max=0.1)
     res = toil.run_oil(tparams, tcfg, sde, TPCSampler(sde=sde, corrector="langevin"), x, t0,
                        torch.tensor(px), torch.tensor(k), None,
@@ -183,7 +184,7 @@ def test_kernel_gn_dtype_follows_gn_fp32_alone(fixture, monkeypatch, gn_fp32):
 
     monkeypatch.setattr(tsk, "pack_weights", spy)
     sde = TSubVPSDE(beta_min=0.1, beta_max=20.0, n=3, t_max=0.1)
-    params = _tree_map(lambda a: a.to(torch.bfloat16), tparams)
+    params = tree_map(lambda a: a.to(torch.bfloat16), tparams)
     cfg = toil.OILConfig(iterations=3, use_kernel=True, gn_fp32=gn_fp32)
     x = torch.zeros(N, 17, 3)
     toil.run_oil(params, tcfg, sde, TPCSampler(sde=sde, eps=0.01), x, torch.zeros(N, 1, 3),

@@ -22,6 +22,7 @@ from zedo_tpu.diffusion import sampling as jsampling
 from zedo_tpu.diffusion import score as jscore
 from zedo_tpu.diffusion import sde as jsde
 from zedo_tpu_torch import presets
+from zedo_tpu_torch.diffusion import ode as tode
 from zedo_tpu_torch.diffusion import sampling as tsampling
 from zedo_tpu_torch.diffusion import score as tscore
 from zedo_tpu_torch.diffusion import sde as tsde
@@ -320,8 +321,7 @@ def test_get_sampling_fn_takes_every_registered_pair(predictor, corrector):
 
 def test_get_sampling_fn_refusals():
     sde = tsde.build_sde("subvpsde")
-    for key, value, err, match in (("method", "ode", NotImplementedError, "item 12"),
-                                   ("method", "ddim", ValueError, "unknown"),
+    for key, value, err, match in (("method", "ddim", ValueError, "unknown"),
                                    ("predictor", "heun", ValueError, "predictor 'heun'"),
                                    ("corrector", "nuts", ValueError, "corrector 'nuts'")):
         config = presets.optim_config("h36m")
@@ -330,6 +330,10 @@ def test_get_sampling_fn_refusals():
             tsampling.get_sampling_fn(config, sde, (1, 17, 3), None, 0.01)
     with pytest.raises(ValueError, match="Already registered"):
         tsampling.register_predictor(lambda *a: a, name="none")
+    config = presets.optim_config("h36m")
+    config.sampling.method = "ode"  # no longer refused: the RK45 sampler
+    assert isinstance(tsampling.get_sampling_fn(config, sde, (1, 17, 3), None, 0.01),
+                      tode.ODESampler)
 
 
 def test_prior_sampling_moments():

@@ -37,7 +37,7 @@ from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.kernels import score_kernel
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.utils.profiling import Stopwatch
 from zedo_tpu_torch.zeroshot import pipeline
@@ -115,7 +115,7 @@ def main(argv=None) -> dict:
     cfg = score_mlp.ScoreMLPConfig()
     params = score_mlp.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
     if dtype == "bf16":
-        params = _tree_map(lambda a: a.to(torch.bfloat16), params)
+        params = tree_map(lambda a: a.to(torch.bfloat16), params)
     oil_iters = args.oil or 1000
     sde = SubVPSDE(beta_min=0.1, beta_max=20.0, n=oil_iters, t_max=0.1)
     sampler = PCSampler(sde=sde, predictor="euler_maruyama", corrector="none",

@@ -84,7 +84,7 @@ def run_trained_bounds(n=886, s=50, oil_iterations=1000, ipo_iterations=500, see
 
     from zedo_tpu_torch.diffusion.sampling import PCSampler
     from zedo_tpu_torch.diffusion.sde import SubVPSDE
-    from zedo_tpu_torch.serving import _tree_map
+    from zedo_tpu_torch.models.nn import tree_map
     from zedo_tpu_torch.zeroshot import ipo as ipo_lib
     from zedo_tpu_torch.zeroshot import oil as oil_lib
     from zedo_tpu_torch.zeroshot import pipeline
@@ -93,7 +93,7 @@ def run_trained_bounds(n=886, s=50, oil_iterations=1000, ipo_iterations=500, see
     dev = params["post_dense"]["weight"].device
     gt, k, px = make_scenes(family, n, seed=seed)
     clusters = make_hypothesis_clusters(family, s)
-    params_bf16 = _tree_map(lambda x: x.to(torch.bfloat16), params)
+    params_bf16 = tree_map(lambda x: x.to(torch.bfloat16), params)
     ipo_cfg = ipo_lib.IPOConfig(iterations=ipo_iterations, keypoint_list=(0, 1, 4),
                                 rot_axes="z", t_norm=3.0)
 

@@ -1,10 +1,11 @@
-"""Shared dataset skeleton: the port's copy of the evaluation half of
-zedo_tpu/data/base.py (numpy only).
+"""Shared dataset skeleton: the port's copy of zedo_tpu/data/base.py (numpy
+and scipy only).
 
 Subclasses implement `read_data` (format-faithful readers) and
 `eval`/`eval_multi` on top of data/evaluation.py. The train-time
-augmentations (`__getitem__`'s flips and rotations, `augment_batch*`,
-`add_noise`) wait for the training port (ROADMAP.md Queue 1, item 13).
+augmentations (`__getitem__`'s flips and rotations, `augment_batch`,
+`augment_batch_cond`, `add_noise`) draw from numpy RandomStates, so they
+give the JAX package's results for the same state exactly.
 
 H36M 17-joint convention throughout: 0 pelvis, 1-3 R leg, 4-6 L leg, 7 spine,
 8 thorax, 9 neck/nose, 10 head, 11-13 L arm, 14-16 R arm.
@@ -67,12 +68,14 @@ def denormalize_data(data: np.ndarray, which: str = "scale") -> np.ndarray:
 
 
 class PoseDataset:
-    """Common ctor wiring and the tensors a solver and an evaluation read.
+    """Common ctor wiring, item access, the train-time augmentations and the
+    tensors a solver and an evaluation read.
 
     Subclasses set db_2d [N, j, 2|3], db_3d [N, j, 3], camera_param [N, 3, 3]
-    (and whatever extras) in `read_data`, called by `__init__`. The JAX
-    package's training arguments (`rep`, `flip`, `cond_3d_prob`, `rot`,
-    `rng`) come with the augmentations."""
+    (and whatever extras) in `read_data`, called by `__init__`."""
+
+    left_joints = LEFT_JOINTS
+    right_joints = RIGHT_JOINTS
 
     def __init__(
         self,
@@ -81,14 +84,23 @@ class PoseDataset:
         gt2d: bool = True,
         read_confidence: bool = True,
         sample_interval: Optional[int] = None,
+        rep: int = 1,
+        flip: bool = False,
+        cond_3d_prob: float = 0,
         abs_coord: bool = False,
+        rot: bool = False,
+        rng: Optional[np.random.RandomState] = None,
     ):
         self.root_path = root_path
         self.subset = subset
         self.gt2d = gt2d
         self.read_confidence = read_confidence
         self.sample_interval = sample_interval
+        self.flip = flip
+        self.cond_3d_prob = cond_3d_prob
         self.abs_coord = abs_coord
+        self.rot = rot
+        self.rng = rng or np.random.RandomState()
         self.image_name: list = []
         self.camera_param: Optional[np.ndarray] = None
 
@@ -97,6 +109,11 @@ class PoseDataset:
 
         if self.sample_interval:
             self._sample(self.sample_interval)
+
+        self.rep = rep
+        if self.rep > 1:
+            print(f"stack dataset {self.rep} times for multi-sample eval")
+        self.real_data_len = len(self.db_2d)
 
     def read_data(self):
         raise NotImplementedError
@@ -144,7 +161,91 @@ class PoseDataset:
                 setattr(self, name, val[::sample_interval])
 
     def __len__(self):
-        return len(self.db_2d)
+        return len(self.db_2d) * self.rep
+
+    def __getitem__(self, idx):
+        """(data_2d [j, 3], data_3d [j, 3]); the 2D zero-padded to 3 channels."""
+        data_2d = self.db_2d[idx % self.real_data_len]
+        data_3d = self.db_3d[idx % self.real_data_len]
+        if data_2d.shape[-1] == 2:
+            data_2d = np.concatenate((data_2d, np.zeros((len(data_2d), 1), dtype=np.float32)),
+                                     axis=-1)
+        if self.cond_3d_prob and self.subset == "train":
+            if self.rng.rand(1)[0] < self.cond_3d_prob:
+                data_2d = data_3d
+        if self.flip and self.subset == "train":
+            data_3d = self._random_flip(data_3d)
+        if self.rot and self.subset == "train":
+            data_3d = self._random_rotate(data_3d)
+        return data_2d, data_3d
+
+    def _flip_joints(self, data: np.ndarray) -> np.ndarray:
+        """x negated and left/right joints swapped on the joint axis (-2)."""
+        out = data.copy()
+        out[..., 0] *= -1
+        out[..., self.left_joints + self.right_joints, :] = \
+            out[..., self.right_joints + self.left_joints, :]
+        return out
+
+    def _random_flip(self, data, p=0.5):
+        if self.rng.rand(1)[0] < p:
+            data = self._flip_joints(data)
+        return data
+
+    def _random_rotate(self, data, p=0.5):
+        from scipy.spatial.transform import Rotation
+
+        if self.rng.rand(1)[0] < p:
+            data = Rotation.random(random_state=self.rng).as_matrix().dot(data.T).T
+        return data
+
+    def augment_batch(self, batch_3d: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+        """The train-time flip and rotation of a [B, j, 3] batch, each row
+        independently with p = 0.5 for each (the batched form of
+        `__getitem__`'s). Linear, so it commutes with the data scale."""
+        if self.subset != "train" or not (self.flip or self.rot):
+            return batch_3d
+        from scipy.spatial.transform import Rotation
+
+        out = np.asarray(batch_3d).copy()
+        n = len(out)
+        if self.flip:
+            do = rng.rand(n) < 0.5
+            out = np.where(do[:, None, None], self._flip_joints(out), out)
+        if self.rot:
+            do = rng.rand(n) < 0.5
+            mats = Rotation.random(n, random_state=rng).as_matrix()
+            rotated = np.einsum("nij,nkj->nki", mats.astype(out.dtype), out)
+            out = np.where(do[:, None, None], rotated, out)
+        return out.astype(batch_3d.dtype, copy=False)
+
+    def augment_batch_cond(self, batch_3d: np.ndarray, cond2d: np.ndarray,
+                           rng: np.random.RandomState):
+        """The flip of conditional training: x negated and left/right joints
+        swapped in the 3D pose AND its 2D condition together (in the ±1 image
+        frame of normalize_data an image flip is x negation). The rotation
+        has no 2D counterpart without re-projection and is not applied.
+        Returns (batch_3d, cond2d)."""
+        if self.subset != "train" or not self.flip:
+            return batch_3d, cond2d
+        out = np.asarray(batch_3d).copy()
+        cond = np.asarray(cond2d).copy()
+        n = len(out)
+        if len(cond) != n:
+            raise ValueError(f"augment_batch_cond: {n} poses but {len(cond)} conditions")
+        do = rng.rand(n) < 0.5
+        out = np.where(do[:, None, None], self._flip_joints(out), out)
+        cond = np.where(do[:, None, None], self._flip_joints(cond), cond)
+        return (out.astype(batch_3d.dtype, copy=False),
+                cond.astype(cond2d.dtype, copy=False))
+
+    def add_noise(self, pose2d, std=5, noise_type="gaussian"):
+        """Synthetic 2D noise."""
+        if noise_type == "gaussian":
+            return pose2d + std * self.rng.randn(*pose2d.shape).astype(np.float32)
+        if noise_type == "uniform":
+            return pose2d + std * (self.rng.rand(*pose2d.shape).astype(np.float32) - 0.5)
+        raise NotImplementedError
 
     def arrays(self):
         """(cond2d [N, j, 2], conf [N, j] | None, k [N, 3, 3]) for the solver."""

@@ -5,8 +5,8 @@ Format: `h36m_{subset}.pkl`, a list of dicts with keys `joint_3d_camera`
 [17, 3] mm, `joint_3d_image` [17, 3], `camera_param` {fx, fy, cx, cy},
 `image_path`, `action` (int 2..16). Detected 2D (Stacked-Hourglass
 fine-tuned): `h36m_sh_dt_ft.pkl` with per-subset `joint3d_image` and
-`confidence`. `dataset_eval` (training's evaluation over another dataset's
-items) waits for the training port.
+`confidence`. `dataset_eval` scores predictions against another dataset's
+GT items (training's evaluation over concatenated sets).
 """
 from __future__ import annotations
 
@@ -96,6 +96,20 @@ class H36MDataset3D(PoseDataset):
             actions=evaluation.actions_from_items(gt_items), action_order=H36M_ACTIONS)
         if print_verbose:
             evaluation.print_action_table("H36M", protocol2, report.per_action, report.error)
+        return report.error
+
+    def dataset_eval(self, preds, dataset, protocol2=True, print_verbose=False,
+                     sample_interval=None):
+        """Action-wise MPJPE against `dataset.gt_dataset`'s items."""
+        print("eval...")
+        gt_items = dataset.gt_dataset
+        assert len(preds) == len(gt_items)
+        if sample_interval is not None:
+            preds = preds[::sample_interval]
+            gt_items = list(gt_items)[::sample_interval]
+        report = evaluation.single_eval(
+            np.asarray(preds), evaluation.gt_from_items(gt_items), protocol2=protocol2,
+            actions=evaluation.actions_from_items(gt_items), action_order=H36M_ACTIONS)
         return report.error
 
     def eval_multi(self, preds, protocol2=False, print_verbose=False,

@@ -5,8 +5,11 @@ Format: `MINI-RGBD.npy`, a dict {'train'|'validate': {frame_key:
 {'pose_2d' [25, 2], 'pose_3d' [25, 3]}}} (the layout of
 zedo_tpu/data/prep/mini_process.py). Fixed Kinect intrinsics; SMIL-25 joints
 mapped to H36M-17 by `SMIL_TO_H36M`, optionally down to 12 by
-`CHANGE_TO_12`. The `aug=True` branch (prior-training augmentation) waits
-for the training port (ROADMAP.md Queue 1, items 13 and 14).
+`CHANGE_TO_12`. `aug=True` appends the prior-only 3D rows of `aug_path`,
+each shrunk by a random factor in [0.8, 1.2] from the dataset's
+RandomState; then, as in the reference, the 2D, the frame names and K are
+replaced wholesale by zeros (K by a malformed [N, j, 3] zero array), so only
+the prior trainer (which reads db_3d alone) can use such a set.
 """
 from __future__ import annotations
 
@@ -35,15 +38,17 @@ def mini_intrinsics() -> np.ndarray:
 
 
 class mini_rgbd(PoseDataset):  # noqa: N801 — reference class name
-    def __init__(self, subset="train", num_joint=17, aug=False, normed=False,
-                 data_root="data/mini-rgbd", **kwargs):
-        if aug:
-            raise NotImplementedError(
-                "mini_rgbd(aug=True) feeds the prior trainer and waits for the training "
-                "port (ROADMAP.md Queue 1, items 13 and 14)")
+    def __init__(self, subset="train", num_joint=17, aug=False, scale=1.0, normed=False,
+                 cls=False, data_root="data/mini-rgbd", aug_path="aug_mini.npy",
+                 save_gt_path=None, **kwargs):
         self.num_joint = num_joint
+        self.aug = aug
+        self.scale = scale
         self.normed = normed
+        self.cls = cls
         self.data_root = data_root
+        self.aug_path = aug_path
+        self.save_gt_path = save_gt_path  # the reference saves its GT on load; opt-in
         self.K: list = []
         super().__init__(subset=subset, **kwargs)
 
@@ -65,6 +70,7 @@ class mini_rgbd(PoseDataset):  # noqa: N801 — reference class name
 
         pose_3d = np.array(pose_3d, dtype=np.float32)
         pose_2d = np.array(pose_2d, dtype=np.float32)
+        frame_name = np.array(frame_name)
 
         if not self.abs_coord:
             self.root = pose_3d[:, 0:1]
@@ -75,6 +81,16 @@ class mini_rgbd(PoseDataset):  # noqa: N801 — reference class name
         if self.num_joint == 17:
             pose_2d = pose_2d[:, SMIL_TO_H36M]
             pose_3d = pose_3d[:, SMIL_TO_H36M]
+
+        if self.aug:
+            aug_data = np.load(self.aug_path)
+            aug_data = aug_data / self.rng.uniform(0.8, 1.2, (len(aug_data), 1, 1))
+            pose_3d = np.concatenate([pose_3d, aug_data.astype(np.float32)], axis=0)
+            if len(pose_2d) != len(pose_3d):
+                pose_2d = np.zeros_like(pose_3d)
+                frame_name = np.zeros(len(pose_3d))
+                self.K = np.zeros_like(pose_3d)
+
         if self.num_joint == 12:
             pose_2d = pose_2d[:, CHANGE_TO_12, :]
             pose_3d = pose_3d[:, CHANGE_TO_12, :]
@@ -83,13 +99,28 @@ class mini_rgbd(PoseDataset):  # noqa: N801 — reference class name
             self.left_joints = [3, 4, 5, 6, 7, 8]
             self.right_joints = [0, 1, 2, 9, 10, 11]
 
+        if self.save_gt_path:
+            np.save(self.save_gt_path, pose_3d)
+
         self.db_2d = pose_2d
         self.db_3d = pose_3d
-        self.frame_name = np.array(frame_name)
+        self.frame_name = frame_name
         self.camera_param = np.array(self.K) if len(self.K) else np.zeros_like(pose_3d)
 
     def _strided_fields(self):
         return ["db_2d", "db_3d", "image_name", "camera_param", "frame_name"]
+
+    def __getitem__(self, idx):
+        """(data_2d, data_3d, K), and the class label [0, 1] with `cls`."""
+        data_2d = self.db_2d[idx % self.real_data_len]
+        data_3d = self.db_3d[idx % self.real_data_len]
+        k = self.camera_param[idx % self.real_data_len]
+        if self.scale > 1:
+            data_3d = data_3d * self.scale
+        if self.cls:
+            data_2d = np.concatenate([data_2d, np.ones((data_2d.shape[0], 1))], axis=-1)
+            return data_2d, data_3d, k, np.array([0, 1])
+        return data_2d, data_3d, k
 
     def eval_multi(self, preds, protocol2=False, print_verbose=False,
                    sample_interval=None, valid_ind=None):

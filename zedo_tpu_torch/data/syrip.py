@@ -7,9 +7,10 @@ Stitches corrected 3D (`SyRIP_3d_correction/correct_3D.npy` +
 zedo_tpu/data/prep/syrip_process.py) keyed by image-name maps
 (`{train,test}_rysip.npy`). Synthetic intrinsics: f = 2000, principal point
 at the image centre. The COCO-to-12-joint maps keep the reference's negative
-indices verbatim. Only the 12-joint convention is coherent. The `aug=True`
-branch (prior-training augmentation) waits for the training port
-(ROADMAP.md Queue 1, items 13 and 14).
+indices verbatim. Only the 12-joint convention is coherent. `aug=True`
+appends the prior-only 3D rows of `aug_path`, each shrunk by a random
+factor in [2.5, 3.5] from the dataset's RandomState: they carry no 2D, so
+only the prior trainer (which reads db_3d alone) can use such a set.
 """
 from __future__ import annotations
 
@@ -29,14 +30,13 @@ class syrip(PoseDataset):  # noqa: N801 — reference class name
     left_joints = [3, 4, 5, 9, 10, 11]
     right_joints = [0, 1, 2, 6, 7, 8]
 
-    def __init__(self, subset="train", num_joint=17, aug=False, data_root="data/syrip",
-                 **kwargs):
-        if aug:
-            raise NotImplementedError(
-                "syrip(aug=True) feeds the prior trainer and waits for the training port "
-                "(ROADMAP.md Queue 1, items 13 and 14)")
+    def __init__(self, subset="train", num_joint=17, truncated=False, aug=False,
+                 data_root="data/syrip", aug_path="cls_aug_data.npy", **kwargs):
         self.num_joint = num_joint
+        self.truncated = truncated  # accepted and read by nothing, as in the reference
+        self.aug = aug
         self.data_root = data_root
+        self.aug_path = aug_path
         self.K: list = []
         super().__init__(subset=subset, **kwargs)
 
@@ -99,6 +99,11 @@ class syrip(PoseDataset):  # noqa: N801 — reference class name
         pelvis = (data_3d[:, 0, :] + data_3d[:, 3, :]) / 2
         data_3d = data_3d - pelvis[:, None, :]
 
+        if self.aug:
+            aug_data = np.load(self.aug_path)
+            aug_data = aug_data / self.rng.uniform(2.5, 3.5, (len(aug_data), 1, 1))
+            data_3d = np.concatenate([data_3d, aug_data.astype(np.float32)])
+
         self.db_2d = data_2d
         self.db_3d = data_3d
         self.frame_name = frame_name
@@ -106,6 +111,15 @@ class syrip(PoseDataset):  # noqa: N801 — reference class name
 
     def _strided_fields(self):
         return ["db_2d", "db_3d", "image_name", "h", "w", "K", "camera_param", "frame_name"]
+
+    def __getitem__(self, idx):
+        """(data_2d [j, 2], data_3d [j, 3], a zero K), as the reference returns."""
+        data_2d = self.db_2d[idx % self.real_data_len][:, :2]
+        data_3d = self.db_3d[idx % self.real_data_len]
+        return data_2d, data_3d, np.zeros((3, 3), dtype=np.float32)
+
+    def __len__(self):
+        return len(self.db_3d) * self.rep
 
     def eval_multi(self, preds, protocol2=False, print_verbose=False,
                    sample_interval=None, valid_ind=None):

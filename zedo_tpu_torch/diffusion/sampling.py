@@ -1,6 +1,8 @@
-"""Predictor-corrector sampling step (port of the predictor and corrector
-registries, `PCSampler.reverse`, `PCSampler.zedo_pc_step` and
-`get_sampling_fn` of zedo_tpu/diffusion/sampling.py).
+"""Predictor-corrector samplers (port of zedo_tpu/diffusion/sampling.py):
+the predictor and corrector registries, `PCSampler.zedo_pc_step` (one
+step at an external time), `PCSampler.sample_loop` (the full N-step sampler
+with the legacy task modes' imputation, warm start and guidance),
+`make_task_mask` and `get_sampling_fn`.
 
 Predictors and correctors are pure functions in registries. Noise comes
 from an explicit `torch.Generator` that the caller passes in, never from the
@@ -9,18 +11,17 @@ predictor's); JAX's threefry draws cannot be reproduced, so the noisy
 updates agree with the JAX package in distribution and the deterministic
 ones (probability flow, x_mean) exactly. Where the probability flow makes
 an update deterministic, no noise is drawn.
-
-The full N-step sampler (`sample_loop`, `make_task_mask`) and the ODE
-sampler wait for the full sampling surface (ROADMAP.md Queue 1, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from zedo_tpu_torch.diffusion.ode import ODESampler
 from zedo_tpu_torch.diffusion.sde import SDE, VESDE, VPSDE, ReverseSDE, SubVPSDE, _bcast, _randn
 
 _PREDICTORS: dict[str, Callable] = {}
@@ -178,16 +179,120 @@ class PCSampler:
             self.sde, score_fn, gen, x, vec_t, condition, mask, self.snr, self.n_steps)
         return get_predictor(self.predictor)(rsde, gen, x, vec_t, condition, mask)
 
+    def sample_loop(self, score_fn, gen: torch.Generator, shape, condition=None, mask=None,
+                    x_init: Optional[torch.Tensor] = None, warm_start_steps: int = 0,
+                    return_trajectory: bool = False, guidance_fn=None,
+                    guidance_condition=None):
+        """Full N-step PC sampling from sde.T down to eps, on `gen`'s device
+        (or x_init's). Noise comes from `gen` in step order: the prior draw,
+        then per step the corrector's, the imputation's, the predictor's and
+        the imputation's again; the loop never reads the device.
 
-def get_sampling_fn(config, sde: SDE, shape, inverse_scaler, eps: float) -> PCSampler:
+        mask: [*, j, d] imputation mask (1 = known entry, imputed from
+        `condition` at each step) or None. x_init: the start state (default
+        a prior draw; the den task passes its noisy input). warm_start_steps:
+        the first k steps run at t = sde.T. guidance_fn: optional (x, t, cond)
+        -> gradient shaped like x, descended after each predictor step and
+        once on the final x_mean; guidance_condition (default `condition`)
+        is its cond. return_trajectory: also return the [n, *shape] states,
+        the last entry the (guided) denoised x_mean. Returns x_mean when
+        the sampler denoises, else x."""
+        if x_init is None:
+            x = self.sde.prior_sampling(
+                gen, torch.empty(shape, dtype=torch.float32, device=gen.device))
+        else:
+            x = x_init
+        if mask is not None and condition is not None:
+            x = x * (1 - mask) + condition * mask
+        timesteps = torch.linspace(self.sde.T, self.eps, self.sde.n, dtype=x.dtype,
+                                   device=x.device)
+        rsde = self.reverse(score_fn)
+        corrector_fn = get_corrector(self.corrector)
+        predictor_fn = get_predictor(self.predictor)
+        g_cond = guidance_condition if guidance_condition is not None else condition
+
+        def impute(x, x_mean, vec_t):
+            if mask is None or condition is None:
+                return x, x_mean
+            masked_mean, std = self.sde.marginal_prob(condition, vec_t)
+            masked = masked_mean + _randn(gen, x.shape, x) * _bcast(std, x)
+            return x * (1 - mask) + masked * mask, x_mean * (1 - mask) + masked_mean * mask
+
+        def guide(x, vec_t):
+            g = guidance_fn(x, vec_t, g_cond)
+            # a scalar-returning objective (get_sym_grad_fn, the reference's
+            # loss-not-gradient quirk) would broadcast `x - scalar` and
+            # destroy the sample
+            if g.shape != x.shape:
+                raise ValueError(
+                    f"guidance_fn must return a per-coordinate gradient shaped like x "
+                    f"{tuple(x.shape)}, got {tuple(g.shape)}: pass a gradient (e.g. "
+                    f"get_sym_gradient_fn), not a loss")
+            return x - g
+
+        x_mean = x
+        trajs = []
+        for i in range(self.sde.n):
+            # pinned to sde.T, not the reference's literal 1.0 (the ZeDO
+            # eval SDEs have T = 0.1)
+            t = self.sde.T if i < warm_start_steps else timesteps[i]
+            vec_t = torch.as_tensor(t, dtype=x.dtype, device=x.device).expand(shape[0])
+            x, x_mean = corrector_fn(self.sde, score_fn, gen, x, vec_t, condition, mask,
+                                     self.snr, self.n_steps)
+            x, x_mean = impute(x, x_mean, vec_t)
+            x, x_mean = predictor_fn(rsde, gen, x, vec_t, condition, mask)
+            x, x_mean = impute(x, x_mean, vec_t)
+            if guidance_fn is not None:
+                x = guide(x, vec_t)
+            if return_trajectory:
+                trajs.append(x)
+        if guidance_fn is not None:
+            x_mean = guide(x_mean, timesteps[-1].expand(shape[0]))
+        x_final = x_mean if self.denoise else x
+        if return_trajectory:
+            trajs[-1] = x_mean  # the reference's `trajs[-1] = x_mean`
+            return torch.stack(trajs), x_final
+        return x_final
+
+
+# ----------------------------------------------------------- task masks
+LIMB_JOINTS = np.array([12, 13, 15, 16, 5, 6, 2, 3])
+
+
+def make_task_mask(task: str, shape: tuple, jlist: Optional[str] = None,
+                   randj: Optional[int] = None, seed: int = 0) -> np.ndarray:
+    """Imputation masks of the legacy task modes (1 = imputed from the
+    condition): est masks the depth only; comp2d / comp3d mask the listed or
+    `randj` random limb joints (comp2d the depth too); den / gen mask
+    nothing. Unlike the reference, whose est branch builds this mask and
+    never applies it, the mask is applied (the observed x/y stay pinned)."""
+    mask = np.ones(shape, dtype=np.float32)
+    rng = np.random.RandomState(seed)
+    if task == "est":
+        mask[..., -1] = 0
+    elif task in ("comp2d", "comp3d"):
+        if jlist:
+            mask[:, list(map(int, jlist.split(","))), :] = 0
+        elif randj:
+            for b in range(shape[0]):
+                mask[b, rng.choice(LIMB_JOINTS, randj, replace=False), :] = 0
+        if task == "comp2d":
+            mask[..., -1] = 0
+    elif task in ("den", "gen"):
+        mask[:] = 0
+    else:
+        raise ValueError(f"unknown task {task!r}")
+    return mask
+
+
+def get_sampling_fn(config, sde: SDE, shape, inverse_scaler, eps: float):
     """The entry points' sampler dispatch: 'pc' with any registered
-    predictor and corrector. `shape` and `inverse_scaler` are accepted for
-    the JAX signature."""
+    predictor and corrector, or 'ode' (the RK45 probability-flow sampler
+    for `shape`). `inverse_scaler` is accepted for the JAX signature."""
     name = config.sampling.method.lower()
     if name == "ode":
-        raise NotImplementedError(
-            "the ODE sampler waits for a later slice of the port (ROADMAP.md Queue 1, "
-            "item 12: the full sampling surface)")
+        return ODESampler(sde=sde, shape=tuple(shape), denoise=config.sampling.noise_removal,
+                          eps=eps)
     if name != "pc":
         raise ValueError(f"Sampler name {name} unknown.")
     predictor = config.sampling.predictor.lower()

@@ -4,8 +4,7 @@ discrete DDPM schedule).
 
 SDEs are frozen dataclasses of static hyperparameters with pure-function
 methods. States x are [..., j, d], times t are x.shape[:-2]. Noise comes from
-an explicit `torch.Generator`, never the global one. `prior_logp` waits for
-the full sampling surface (ROADMAP.md Queue 1, item 12).
+an explicit `torch.Generator`, never the global one.
 """
 from __future__ import annotations
 
@@ -52,6 +51,18 @@ class SDE:
     def prior_sampling(self, gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
         """A draw from the prior, shaped and placed like `like`."""
         return _randn(gen, like.shape, like)
+
+    def _prior_sigma(self) -> float:
+        return 1.0
+
+    def prior_logp(self, z: torch.Tensor) -> torch.Tensor:
+        """Log-density [B] of z [B, ...] under the isotropic normal prior of
+        std `_prior_sigma()`."""
+        sigma = self._prior_sigma()
+        n_dims = math.prod(z.shape[1:])
+        flat = z.reshape(z.shape[0], -1)
+        return (-n_dims / 2.0 * math.log(2 * math.pi * sigma ** 2)
+                - (flat ** 2).sum(-1) / (2 * sigma ** 2))
 
     def discretize(self, x, t):
         """Euler-Maruyama discretization; dt = 1/N regardless of T, as in
@@ -117,6 +128,9 @@ class VPSDE(SDE):
 
     def alphas(self, like: torch.Tensor) -> torch.Tensor:
         return 1.0 - self.discrete_betas(like)
+
+    def sqrt_alphas_cumprod(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.cumprod(self.alphas(like), 0))
 
     def sqrt_1m_alphas_cumprod(self, like: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(1.0 - torch.cumprod(self.alphas(like), 0))
@@ -189,6 +203,9 @@ class VESDE(SDE):
 
     def prior_sampling(self, gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
         return _randn(gen, like.shape, like) * self.sigma_max
+
+    def _prior_sigma(self) -> float:
+        return self.sigma_max
 
     def adjacent_sigmas(self, t):
         """(sigma, the next smaller sigma or 0 at the first step) at t."""

@@ -12,8 +12,8 @@ temb projection OVERWRITES the activation instead of adding to it
 (`c = dense2_t_copy(temb)`). Released ZeDO-i checkpoints were trained with
 this dataflow.
 
-Inference only: `train=True` (dropout) waits for the training port
-(ROADMAP.md Queue 1, item 13).
+With train=True every SiLU output of both branches goes through dropout,
+its masks drawn from the `generator` passed in.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from zedo_tpu_torch.models import nn
-from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, time_embedding
+from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, time_embedding, used_sigmas
 from zedo_tpu_torch.models.score_mlp import init_params as init_trunk_params
 from zedo_tpu_torch.utils.config import resolve_device
 
@@ -77,23 +77,18 @@ def trainable_mask(params: Params) -> dict:
 
 def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: torch.Tensor,
           condition: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None, *,
-          train: bool = False) -> torch.Tensor:
-    """Forward at eval (dropout is the identity); condition and mask are
-    accepted and ignored."""
+          train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Forward; condition and mask are accepted and ignored. train: dropout
+    after each SiLU, masks from `generator`."""
     del condition, mask
-    if train:
-        raise NotImplementedError(
-            "control_mlp.apply(train=True) waits for the training port (ROADMAP.md "
-            "Queue 1, item 13)")
     bs = batch.shape[0]
     x = batch.reshape(bs, -1)
     g = cfg.group_norm_groups
 
-    temb = time_embedding(params, cfg, t_labels)
-    if cfg.embedding_type == "fourier":
-        used_sigmas = t_labels
-    else:
-        used_sigmas = params["sigmas"][t_labels.long()]
+    def drop(v):
+        return nn.dropout(v, cfg.dropout, train, generator)
+
+    temb = time_embedding(params, cfg, t_labels, batch.dtype)
 
     # control branch seed: batch + act(zc_1(infant_cond))
     c = x + nn.silu(nn.linear(params["zc_layer_1"], params["infant_cond"]))
@@ -101,12 +96,12 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: to
     c = nn.linear(params["pre_dense_copy"], c)
     c = c + nn.linear(params["pre_dense_t_copy"], temb)
     c0 = nn.linear(params["zc_layer_2"], c)
-    c = nn.silu(nn.group_norm(params["pre_gnorm_copy"], c, g))
+    c = drop(nn.silu(nn.group_norm(params["pre_gnorm_copy"], c, g)))
 
     h = nn.linear(params["pre_dense"], x)
     h = h + nn.linear(params["pre_dense_t"], temb)
     h = h + c0
-    h = nn.silu(nn.group_norm(params["pre_gnorm"], h, g))
+    h = drop(nn.silu(nn.group_norm(params["pre_gnorm"], h, g)))
 
     for idx in range(cfg.n_blocks):
         b = f"b{idx + 1}"
@@ -114,29 +109,29 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: to
         c = nn.linear(params[f"{b}_dense1_copy"], c)
         c = c + nn.linear(params[f"{b}_dense1_t_copy"], temb)
         c1 = nn.linear(params[f"zc_{b}_1"], c)
-        c = nn.silu(nn.group_norm(params[f"{b}_gnorm1_copy"], c, g))
+        c = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm1_copy"], c, g)))
 
         # the checked-in quirk: `c = dense2_t_copy(temb)`, `=` and not `+=`,
         # so the reference's dense2_copy(c) is discarded; it is not computed
         c = nn.linear(params[f"{b}_dense2_t_copy"], temb)
         c = c.expand(orc.shape)
         c2 = nn.linear(params[f"zc_{b}_2"], c)
-        c = nn.silu(nn.group_norm(params[f"{b}_gnorm2_copy"], c, g))
+        c = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm2_copy"], c, g)))
         c = orc + c
 
         h1 = nn.linear(params[f"{b}_dense1"], h)
         h1 = h1 + nn.linear(params[f"{b}_dense1_t"], temb)
         h1 = h1 + c1
-        h1 = nn.silu(nn.group_norm(params[f"{b}_gnorm1"], h1, g))
+        h1 = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm1"], h1, g)))
 
         h2 = nn.linear(params[f"{b}_dense2"], h1)
         h2 = h2 + nn.linear(params[f"{b}_dense2_t"], temb)
         h2 = h2 + c2
-        h2 = nn.silu(nn.group_norm(params[f"{b}_gnorm2"], h2, g))
+        h2 = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm2"], h2, g)))
 
         h = h + h2
 
     res = nn.linear(params["post_dense"], h).reshape(bs, cfg.n_joints, -1)
     if cfg.scale_by_sigma:
-        res = res / used_sigmas.reshape(bs, 1, 1)
+        res = res / used_sigmas(params, cfg, t_labels).reshape(bs, 1, 1)
     return res

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -76,3 +77,36 @@ def group_norm(p: Params, x: torch.Tensor, num_groups: int,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x)
+
+
+def tree_map(fn, tree: Params) -> Params:
+    """`fn` applied to every leaf of a nested params dict."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_to_flat(tree: Params, prefix: str = "") -> dict:
+    """Nested params -> {dotted name (the state_dict key): leaf}."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(tree_to_flat(value, f"{prefix}{key}."))
+        else:
+            flat[prefix + key] = value
+    return flat
+
+
+def tree_replace(tree: Params, flat: dict, prefix: str = "") -> Params:
+    """`tree`'s structure with each leaf replaced by flat[its dotted name]."""
+    return {k: tree_replace(v, flat, f"{prefix}{k}.") if isinstance(v, dict) else flat[prefix + k]
+            for k, v in tree.items()}
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (torch semantics) with its keep mask drawn from
+    `generator`; the identity when train=False or rate == 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,9 +1,36 @@
-"""Score-model configuration from a nested config (port of `make_mlp_config`
-from zedo_tpu/models/registry.py; `register_model` and `create_model` wait
-for the training port, ROADMAP.md Queue 1, item 13)."""
+"""Model registry (port of zedo_tpu/models/registry.py, the reference's
+register_model / get_model / create_model): a registered model is an
+(init_params, apply, make_config) triple keyed by name, and `create_model`
+builds its params and apply from a nested config."""
 from __future__ import annotations
 
-from zedo_tpu_torch.models import score_mlp
+from typing import Callable, NamedTuple
+
+import torch
+
+from zedo_tpu_torch.models import control_mlp, score_mlp, score_mlp_cond
+
+_MODELS: dict[str, "ModelDef"] = {}
+
+
+class ModelDef(NamedTuple):
+    init_params: Callable  # (generator, cfg, dtype=, device=) -> params
+    apply: Callable
+    make_config: Callable  # (config, **dims) -> ScoreMLPConfig
+
+
+def register_model(model: ModelDef = None, *, name: str = None):
+    def _register(model):
+        if name in _MODELS:
+            raise ValueError(f"Already registered model with name: {name}")
+        _MODELS[name] = model
+        return model
+
+    return _register(model) if model is not None else _register
+
+
+def get_model(name: str) -> ModelDef:
+    return _MODELS[name]
 
 
 def make_mlp_config(config, n_joints=17, joint_dim=3, hidden_dim=1024,
@@ -29,3 +56,25 @@ def make_mlp_config(config, n_joints=17, joint_dim=3, hidden_dim=1024,
         sigma_max=float(model.sigma_max),
         num_scales=int(model.num_scales),
     )
+
+
+register_model(ModelDef(score_mlp.init_params, score_mlp.apply, make_mlp_config),
+               name="score_mlp")
+# the reference registers its MLP under the legacy name 'ncsnpp' (the configs'
+# model.name)
+register_model(ModelDef(score_mlp.init_params, score_mlp.apply, make_mlp_config),
+               name="ncsnpp")
+register_model(ModelDef(control_mlp.init_params, control_mlp.apply, make_mlp_config),
+               name="control_mlp")
+register_model(ModelDef(score_mlp_cond.init_params, score_mlp_cond.apply, make_mlp_config),
+               name="score_mlp_cond")
+
+
+def create_model(config, name: str = None, generator: torch.Generator = None,
+                 device="cuda", **dims):
+    """(params, apply, model_cfg) from a nested config; the params drawn
+    from `generator` (default seeded 0) and placed on `device`."""
+    model = get_model(name or config.model.name)
+    cfg = model.make_config(config, **dims)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    return model.init_params(gen, cfg, device=device), model.apply, cfg

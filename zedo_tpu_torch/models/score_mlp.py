@@ -11,7 +11,10 @@ whose keys mirror the torch state_dict, plus a static `ScoreMLPConfig`.
         h  = h + h2
     out = post_dense(h) -> [B, j, d]
 
-Inference only: dropout is identity at eval and waits for the training port.
+With train=True every SiLU output goes through dropout (cfg.dropout), its
+masks drawn from the `generator` passed in. A bf16 batch (mixed-precision
+training, diffusion/losses.mixed_precision_apply) runs the time embedding's
+products in bf16 too.
 """
 from __future__ import annotations
 
@@ -122,30 +125,39 @@ def init_params(gen: torch.Generator, cfg: ScoreMLPConfig, dtype=torch.float32,
     return p
 
 
-def time_embedding(params: Params, cfg: ScoreMLPConfig,
-                   t_labels: torch.Tensor) -> torch.Tensor:
+def time_embedding(params: Params, cfg: ScoreMLPConfig, t_labels: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Shared time embedding [B] -> [B, embed_dim]; t_labels are the
-    model-facing labels (t*999 for continuous sub-VP)."""
+    model-facing labels (t*999 for continuous sub-VP). The sinusoidal
+    features are computed in f32 and, when `dtype` is given, cast to it
+    before the shared projection."""
     if cfg.embedding_type == "fourier":
         temb = gaussian_fourier_projection(params["gauss_proj"]["W"], torch.log(t_labels))
     elif cfg.embedding_type == "positional":
         temb = get_timestep_embedding(t_labels, cfg.embed_dim)
     else:
         raise ValueError(f"time embedding type {cfg.embedding_type} unknown.")
+    if dtype is not None:
+        temb = temb.to(dtype)
     return nn.silu(nn.linear(params["shared_time_embed"]["0"], temb))
 
 
 def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
                     temb: torch.Tensor, *, used_sigmas: Optional[torch.Tensor] = None,
+                    train: bool = False, generator: Optional[torch.Generator] = None,
                     intermediates: Optional[dict] = None) -> torch.Tensor:
     """Trunk forward given a precomputed shared time embedding.
 
     batch: [B, j, d]; temb: [B, embed] or [embed] (broadcast over batch).
+    train: dropout after each SiLU, masks from `generator`.
     intermediates: optional dict filled with named per-layer activations."""
     bs = batch.shape[0]
     x = batch.reshape(bs, -1)
     if temb.dim() == 1:
         temb = temb.expand(bs, temb.shape[0])
+
+    def drop(v):
+        return nn.dropout(v, cfg.dropout, train, generator)
 
     def rec(name, v):
         if intermediates is not None:
@@ -156,7 +168,7 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
     h = h + nn.linear(params["pre_dense_t"], temb)
     h = nn.group_norm(params["pre_gnorm"], h, g)
     rec("pre_gnorm", h)
-    h = nn.silu(h)
+    h = drop(nn.silu(h))
 
     for idx in range(cfg.n_blocks):
         b = f"b{idx + 1}"
@@ -164,13 +176,13 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
         h1 = h1 + nn.linear(params[f"{b}_dense1_t"], temb)
         h1 = nn.group_norm(params[f"{b}_gnorm1"], h1, g)
         rec(f"{b}_gnorm1", h1)
-        h1 = nn.silu(h1)
+        h1 = drop(nn.silu(h1))
 
         h2 = nn.linear(params[f"{b}_dense2"], h1)
         h2 = h2 + nn.linear(params[f"{b}_dense2_t"], temb)
         h2 = nn.group_norm(params[f"{b}_gnorm2"], h2, g)
         rec(f"{b}_gnorm2", h2)
-        h2 = nn.silu(h2)
+        h2 = drop(nn.silu(h2))
 
         h = h + h2
 
@@ -180,18 +192,28 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
     return res
 
 
+def used_sigmas(params: Params, cfg: ScoreMLPConfig, t_labels: torch.Tensor):
+    """The sigmas a `scale_by_sigma` model divides by (None otherwise): the
+    labels themselves for fourier, else the sigma ladder at the labels,
+    indices clamped into it as a JAX gather clamps them."""
+    if not cfg.scale_by_sigma:
+        return None
+    if cfg.embedding_type == "fourier":
+        return t_labels
+    sigmas = params["sigmas"]
+    return sigmas[t_labels.long().clamp(0, len(sigmas) - 1)]
+
+
 def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
-          t_labels: torch.Tensor, condition=None, mask=None, *,
+          t_labels: torch.Tensor, condition=None, mask=None, *, train: bool = False,
+          generator: Optional[torch.Generator] = None,
           intermediates: Optional[dict] = None) -> torch.Tensor:
     """Full forward; condition/mask are accepted and ignored, as in the
     reference's unconditional model."""
     del condition, mask
-    if cfg.embedding_type == "fourier":
-        used_sigmas = t_labels
-    else:
-        used_sigmas = params["sigmas"][t_labels.long()]
-    temb = time_embedding(params, cfg, t_labels)
+    temb = time_embedding(params, cfg, t_labels, batch.dtype)
     if intermediates is not None:
         intermediates["temb"] = temb
-    return apply_with_temb(params, cfg, batch, temb, used_sigmas=used_sigmas,
-                           intermediates=intermediates)
+    return apply_with_temb(params, cfg, batch, temb,
+                           used_sigmas=used_sigmas(params, cfg, t_labels), train=train,
+                           generator=generator, intermediates=intermediates)

@@ -5,9 +5,9 @@ A 2D/3D condition is re-expressed as `batch - condition` with the z channel
 masked for 2D conditions, embedded by a Linear+SiLU, and injected into every
 dense layer through per-layer `*_cond` projections.
 
-Inference only: `train=True` (dropout and the train-time condition masking,
-`random_mask_condition`) waits for the training port (ROADMAP.md Queue 1,
-item 13).
+With train=True the re-expressed condition is masked at random
+(`random_mask_condition`: whole pose, body part, joint) and every SiLU
+output goes through dropout, all draws from the `generator` passed in.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch.models import nn
-from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, time_embedding
+from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, time_embedding, used_sigmas
 from zedo_tpu_torch.models.score_mlp import init_params as init_trunk
 from zedo_tpu_torch.utils.config import resolve_device
 
@@ -61,24 +61,46 @@ def part_mask_table(n_joints: int) -> np.ndarray:
     return table
 
 
+def random_mask_condition(generator: torch.Generator, condition: torch.Tensor,
+                          cfg: ScoreMLPConfig, mask_cfg: CondMaskConfig) -> torch.Tensor:
+    """Train-time condition dropout: whole-pose, body-part and per-joint
+    Bernoulli masking of condition [B, j, c], each draw from `generator`
+    (in that order, each only when its probability is positive)."""
+    b, dev = condition.shape[0], condition.device
+
+    def bernoulli(p, shape):
+        return torch.rand(shape, generator=generator, device=dev) < p
+
+    if mask_cfg.pose_mask_prob > 0:
+        drop = bernoulli(mask_cfg.pose_mask_prob, (b, 1, 1))
+        condition = condition * (1.0 - drop.to(condition.dtype))
+    if mask_cfg.part_mask_prob > 0:
+        table = torch.as_tensor(part_mask_table(cfg.n_joints), device=dev)  # [p, j]
+        sel = bernoulli(mask_cfg.part_mask_prob, (b, table.shape[0]))
+        # product over the selected parts' masks; all ones when none is selected
+        masks = torch.where(sel[..., None], table[None], torch.ones_like(table)[None])
+        condition = condition * masks.prod(dim=1)[..., None].to(condition.dtype)
+    if mask_cfg.joint_mask_prob > 0:
+        drop = bernoulli(mask_cfg.joint_mask_prob, (b, cfg.n_joints, 1))
+        condition = condition * (1.0 - drop.to(condition.dtype))
+    return condition
+
+
 def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: torch.Tensor,
           condition: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None, *,
           mask_cfg: CondMaskConfig = CondMaskConfig(), train: bool = False,
+          generator: Optional[torch.Generator] = None,
           force_null_condition: bool = False) -> torch.Tensor:
-    """Forward at eval with condition injection.
+    """Forward with condition injection.
 
     condition: [B, j, 2|3] keypoints (2D padded with a zero z channel),
     re-expressed as batch - condition with z masked out when the condition
-    carries no depth. mask: eval-time condition mask [B, j, c].
-    force_null_condition: zero the RE-EXPRESSED condition, the null state of
-    train-time condition dropout. condition=None means that null state too;
-    raw zero keypoints would re-express to cond = batch.xy, a strong fake
-    condition."""
-    del mask_cfg  # read by the train-time condition masking only
-    if train:
-        raise NotImplementedError(
-            "score_mlp_cond.apply(train=True) waits for the training port (ROADMAP.md "
-            "Queue 1, item 13)")
+    carries no depth. mask: eval-time condition mask [B, j, c] (ignored in
+    training). force_null_condition: zero the RE-EXPRESSED condition, the
+    null state of train-time condition dropout. condition=None means that
+    null state too; raw zero keypoints would re-express to cond = batch.xy,
+    a strong fake condition. train: `random_mask_condition` with `mask_cfg`,
+    then dropout after each SiLU, all draws from `generator`."""
     bs = batch.shape[0]
     g = cfg.group_norm_groups
 
@@ -93,40 +115,41 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: to
     cond = torch.cat([cond[..., :-1], cond[..., -1:] * z_mask[..., None].to(cond.dtype)], -1)
     if force_null_condition:
         cond = torch.zeros_like(cond)
-    if mask is not None:
+    if not train and mask is not None:
         cond = cond * mask
+    if train:
+        cond = random_mask_condition(generator, cond, cfg, mask_cfg)
+
+    def drop(v):
+        return nn.dropout(v, cfg.dropout, train, generator)
 
     cond_h = nn.silu(nn.linear(params["cond_embed"]["0"], cond.reshape(bs, -1)))
 
-    temb = time_embedding(params, cfg, t_labels)
-    if cfg.embedding_type == "fourier":
-        used_sigmas = t_labels
-    else:
-        used_sigmas = params["sigmas"][t_labels.long()]
+    temb = time_embedding(params, cfg, t_labels, batch.dtype)
 
     x = batch.reshape(bs, -1)
     h = nn.linear(params["pre_dense"], x)
     h = h + nn.linear(params["pre_dense_t"], temb)
     h = h + nn.linear(params["pre_dense_cond"], cond_h)
-    h = nn.silu(nn.group_norm(params["pre_gnorm"], h, g))
+    h = drop(nn.silu(nn.group_norm(params["pre_gnorm"], h, g)))
 
     for idx in range(cfg.n_blocks):
         b = f"b{idx + 1}"
         h1 = nn.linear(params[f"{b}_dense1"], h)
         h1 = h1 + nn.linear(params[f"{b}_dense1_t"], temb)
         h1 = h1 + nn.linear(params[f"{b}_dense1_cond"], cond_h)
-        h1 = nn.silu(nn.group_norm(params[f"{b}_gnorm1"], h1, g))
+        h1 = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm1"], h1, g)))
 
         h2 = nn.linear(params[f"{b}_dense2"], h1)
         h2 = h2 + nn.linear(params[f"{b}_dense2_t"], temb)
         h2 = h2 + nn.linear(params[f"{b}_dense2_cond"], cond_h)
-        h2 = nn.silu(nn.group_norm(params[f"{b}_gnorm2"], h2, g))
+        h2 = drop(nn.silu(nn.group_norm(params[f"{b}_gnorm2"], h2, g)))
 
         h = h + h2
 
     res = nn.linear(params["post_dense"], h).reshape(bs, cfg.n_joints, -1)
     if cfg.scale_by_sigma:
-        res = res / used_sigmas.reshape(bs, 1, 1)
+        res = res / used_sigmas(params, cfg, t_labels).reshape(bs, 1, 1)
     return res
 
 

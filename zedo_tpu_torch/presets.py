@@ -5,13 +5,13 @@ depend on. `optim_config(name)` restates, as a plain nested `Config`, the
 keys of configs/optim/concat_pose_optimization_<name>.py (through
 configs/optim/_base.py and configs/default_pose_gen_configs.py, and for the
 infant sets configs/default_mini_configs.py) that the CLIs,
-`make_mlp_config`, `build_sde`, `get_sampling_fn` and
-`ZeDOConfig.from_config` read; a test holds every preset against its file,
-key by key. `model.hidden_dim` / `embed_dim` / `n_blocks` are the published
-1024 / 512 / 2, which the files leave to the CLI's constants, so that an
-override can point a CLI at a checkpoint of another width. Of the infant
-deltas of default_mini_configs.py the DATASET block is restated; the
-trainer's batch sizes and flip flag wait for the training port.
+`make_mlp_config`, `build_sde`, `get_sampling_fn`, `ZeDOConfig.from_config`,
+the trainer and `run.sample` read; a test holds every preset against its
+file, key by key. `model.hidden_dim` / `embed_dim` / `n_blocks` are the
+published 1024 / 512 / 2, which the files leave to the CLI's constants, so
+that an override can point a CLI at a checkpoint of another width. Of the
+infant deltas of default_mini_configs.py the DATASET block and the batch
+sizes are restated.
 
 `h36m()` is the serving configuration built from `optim_config("h36m")`.
 """
@@ -79,19 +79,29 @@ def optim_config(name: str) -> Config:
     if name in _INFANT_JOINTS:
         dataset = {"TRAIN_DATASET": "concate", "TEST_DATASET": "concate",
                    "NUM_JOINT": _INFANT_JOINTS[name]}
+        train_batch, eval_batch = 5000, 1024
     else:
         dataset = {"TRAIN_DATASET": "h36m", "TEST_DATASET": "h36m", "NUM_JOINT": 17}
+        train_batch, eval_batch = 50000, 10000
     return _config({
+        "OUTPUT_DIR": "./output",
+        "seed": 42,
         "DATASET": dataset,
         "data": {"dataset": name},
-        "training": {"sde": "subvpsde", "continuous": True},
+        "training": {"sde": "subvpsde", "continuous": True, "batch_size": train_batch,
+                     "snapshot_freq_for_preemption": 10000, "likelihood_weighting": False,
+                     "reduce_mean": True, "data_scale": 1, "cond_pose_mask_prob": 0.0,
+                     "cond_part_mask_prob": 0.0, "cond_joint_mask_prob": 0.0},
         "sampling": {"method": "pc", "predictor": "euler_maruyama", "corrector": "none",
                      "snr": 0.16, "n_steps_each": 1, "probability_flow": False,
                      "noise_removal": True},
-        "model": {"sigma_min": 0.01, "sigma_max": 50, "num_scales": 1000,
+        "eval": {"batch_size": eval_batch},
+        "optim": {"weight_decay": 0, "optimizer": "Adam", "lr": 2e-4, "beta1": 0.9,
+                  "eps": 1e-8, "warmup": 5000, "grad_clip": 1.0},
+        "model": {"name": "ncsnpp", "sigma_min": 0.01, "sigma_max": 50, "num_scales": 1000,
                   "beta_min": 0.1, "beta_max": 20.0, "dropout": 0.1,
                   "embedding_type": "positional", "fourier_scale": 16,
-                  "scale_by_sigma": False, "t": 0.1,
+                  "scale_by_sigma": False, "t": 0.1, "ema_rate": 0.9999,
                   "hidden_dim": 1024, "embed_dim": 512, "n_blocks": 2},
         "ZeDO": {"IPO_iterations": 500, "OIL_iterations": 1000, "sampling_eps": 0.01,
                  "score_reuse": 1, "gn_fp32": False, "use_pallas": None,

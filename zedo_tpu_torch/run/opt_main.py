@@ -25,7 +25,7 @@ import torch
 
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.data import DATASETS
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device, resolve_dtype
@@ -133,7 +133,7 @@ def run_pipeline(config, args, dataset, stopwatch=None) -> torch.Tensor:
     if dtype != args.dtype:
         print(f"--dtype auto -> {dtype} on {dev.type}")
     if dtype == "bf16":
-        params = _tree_map(lambda x: x.to(torch.bfloat16), params)
+        params = tree_map(lambda x: x.to(torch.bfloat16), params)
 
     cond2d, conf, k = dataset.arrays()
     n = len(cond2d)

@@ -31,7 +31,7 @@ from zedo_tpu_torch.data.mini_rgbd import SMIL_TO_H36M, mini_intrinsics, mini_rg
 from zedo_tpu_torch.data.syrip import syrip
 from zedo_tpu_torch.models import control_mlp, score_mlp, score_mlp_cond
 from zedo_tpu_torch.run.opt_main import load_config
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device, resolve_dtype
@@ -122,7 +122,7 @@ def main(argv=None) -> dict:
     if dtype != args.dtype:
         print(f"--dtype auto -> {dtype} on {dev.type}")
     if dtype == "bf16":
-        params = _tree_map(lambda x: x.to(torch.bfloat16), params)
+        params = tree_map(lambda x: x.to(torch.bfloat16), params)
     # the reference logs the reprojection error of every OIL step
     zcfg = dataclasses.replace(preset.zcfg, oil=dataclasses.replace(preset.zcfg.oil,
                                                                        track_reproj=True))

@@ -17,6 +17,7 @@ import torch
 
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.data.sharding import pad_batch, unpad
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.camera import project
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_torch_checkpoint
 from zedo_tpu_torch.utils.config import resolve_device
@@ -60,7 +61,7 @@ class ZeDOEstimator:
         # the raw weights: the reference loads EMA at inference but never applies it
         params = load_torch_checkpoint(ckpt_path, preset.model_cfg, dev)["params"]
         if dtype == "bf16":
-            params = _tree_map(lambda x: x.to(torch.bfloat16), params)
+            params = tree_map(lambda x: x.to(torch.bfloat16), params)
         clusters = np.asarray(convert_cluster_file(cluster_path), np.float32)
         return cls(params=params, model_cfg=preset.model_cfg, sde=preset.sde,
                    sampler=preset.sampler, zcfg=preset.zcfg, clusters=clusters,
@@ -127,5 +128,3 @@ class ZeDOEstimator:
                 "reprojection_error": err}
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}

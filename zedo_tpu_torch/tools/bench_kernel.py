@@ -28,7 +28,7 @@ import torch
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
 from zedo_tpu_torch.ops.kernels import score_kernel_split as split
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.utils.table import Table
 
@@ -93,7 +93,7 @@ def main(argv=None) -> dict:
 
     cfg = score_mlp.ScoreMLPConfig()
     params = score_mlp.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
-    params = _tree_map(lambda a: a.to(torch.bfloat16), params)
+    params = tree_map(lambda a: a.to(torch.bfloat16), params)
     temb = score_mlp.time_embedding(params, cfg, torch.full((1,), 42.0, device=dev))[0]
     io = cfg.n_joints * cfg.joint_dim
     x = torch.randn(args.rows, io, generator=torch.Generator().manual_seed(1)).to(dev)

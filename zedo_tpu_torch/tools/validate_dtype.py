@@ -23,7 +23,7 @@ import torch
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops import camera
-from zedo_tpu_torch.serving import _tree_map
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import pipeline
 
@@ -74,7 +74,7 @@ def main(argv=None) -> dict:
         return out.poses.double().cpu().numpy()
 
     poses32 = solve(params)
-    poses16 = solve(_tree_map(lambda a: a.to(torch.bfloat16), params))
+    poses16 = solve(tree_map(lambda a: a.to(torch.bfloat16), params))
 
     bounded = np.abs(poses32).max(axis=(1, 2, 3)) < 10.0  # sane-scale samples
     gt_b = gt[bounded]

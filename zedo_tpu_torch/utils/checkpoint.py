@@ -5,14 +5,21 @@ checkpoints whose state_dict keys follow ScoreModelFC_Adv's module names,
 wrapped in DataParallel's `module.` prefix, inside a dict {epoch,
 model_state_dict, optimizer_state_dict, ema, step}. The port's params keep
 those names (`[out, in]` weights), so a state_dict loads directly.
+
+`save_native` / `restore_native` are the training checkpoints, the
+counterparts of the JAX package's orbax ones: the same .pth layout (so
+either package's `load_torch_checkpoint` reads the trained prior), plus
+the whole EMA shadow and the Adam state for a resume.
 """
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
 import torch
 
+from zedo_tpu_torch.models.nn import tree_to_flat
 from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, get_sigmas
 from zedo_tpu_torch.utils.config import resolve_device
 
@@ -76,6 +83,49 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         return torch.tensor(a, device=dev)
 
     return conv(tree)
+
+
+def _cpu(flat: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in flat.items()}
+
+
+def save_native(path: str, epoch: int, step: int, params: dict, ema, opt_state: dict,
+                cfg: ScoreMLPConfig) -> None:
+    """Write a training checkpoint to `path` atomically (a temporary file,
+    then a rename): {epoch, step, model_state_dict (the reference's
+    `module.`-prefixed state dict), ema {decay, num_updates, shadow_params
+    (the reference's positional list of the trainable leaves: ScoreMLP's
+    in its definition order), shadow_state_dict (every leaf, by name)},
+    optimizer_state_dict}. `ema` is a diffusion.ema.EMAState, `opt_state`
+    the optimizer's state_dict()."""
+    flat = tree_to_flat(params)
+    shadow = _cpu(tree_to_flat(ema.shadow_params))
+    order = _param_order(cfg)
+    trainable = [n for n in flat if n != "sigmas" and n != "gauss_proj.W"]
+    names = order if sorted(order) == sorted(trainable) else trainable
+    payload = {
+        "epoch": int(epoch), "step": int(step),
+        "model_state_dict": {"module." + k: v for k, v in _cpu(flat).items()},
+        "ema": {"decay": ema.decay, "num_updates": ema.num_updates,
+                "shadow_params": [shadow[n] for n in names], "shadow_state_dict": shadow},
+        "optimizer_state_dict": opt_state,
+    }
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def restore_native(path: str, device="cuda") -> dict:
+    """A `save_native` checkpoint -> {epoch, step, params, ema: {decay,
+    num_updates, shadow_params (a params dict)}, opt_state} on `device`."""
+    dev = resolve_device(device)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ema = ckpt["ema"]
+    return {"epoch": int(ckpt["epoch"]), "step": int(ckpt["step"]),
+            "params": _flat_to_tree(strip_module_prefix(ckpt["model_state_dict"]), dev),
+            "ema": {"decay": ema["decay"], "num_updates": ema["num_updates"],
+                    "shadow_params": _flat_to_tree(ema["shadow_state_dict"], dev)},
+            "opt_state": ckpt["optimizer_state_dict"]}
 
 
 def _merge(base: dict, override: dict) -> dict:
