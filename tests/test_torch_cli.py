@@ -7,6 +7,7 @@ import dataclasses
 import importlib
 import importlib.util
 import os
+import sys
 import types
 
 import numpy as np
@@ -400,6 +401,10 @@ def test_train_cli_on_a_mini_workspace(tmp_path, monkeypatch, capsys):
     from zedo_tpu_torch.run import train_pose_mini
 
     monkeypatch.chdir(tmp_path)
+    # TensorBoard is optional, as in the JAX CLI; its import alone takes
+    # seconds where TensorFlow is installed, so these runs go without it
+    # (the trainer's scalars: tests/test_torch_train.py)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     _chip_smoke().write_mini_workspace(str(tmp_path), np.random.RandomState(0), 12, n_train=40)
     out = _train(tmp_path)
     state, ckpt = out["state"], os.path.join(out["output_dir"], "checkpoint_0.pth")

@@ -209,12 +209,16 @@ def test_train_trajectory_matches_golden_and_jax(rng, monkeypatch):
 
 
 def test_bf16_mixed_precision_step_against_jax(rng, monkeypatch):
-    """Both packages' mixed precision from the same f32 weights, against the
-    port's f32 loss and gradients: the bf16 losses within 2e-3 of it and of
-    each other, each bf16 gradient within 10% of the f32 one in relative
-    norm, for both packages (measured: the port 5.6% at worst, JAX 3.7%:
-    the port keeps its activations in bf16 between layers, JAX promotes them
-    to f32 after the first sum). A bf16 train step keeps the master
+    """Both packages' mixed precision from the same f32 weights: the port's
+    bf16 loss and gradients against JAX's, run op by op. Under jax.jit XLA
+    may keep f32 where the program rounds to bf16 (its default excess
+    precision), which moves these gradients by 2% here; op by op, each
+    rounding is the program's. The port's bf16 loss equals JAX's within
+    rtol 2e-5 (the bf16 loss is 3e-4 off the f32 one), and each bf16
+    gradient leaf lies within a quarter of its distance from the port's f32
+    gradient (measured: an eighth at worst, pre_dense.bias, whose bf16 sum
+    reduces in another order; most leaves bit-equal), so a wrapper that
+    casts too much or nothing fails. A bf16 train step keeps the master
     weights, the Adam moments and the EMA in f32."""
     ref = golden("test_train_step_trajectory_parity")
     cfg, params, jcfg, jparams = pair(ref["pair_sd"], dropout=0.0)
@@ -238,16 +242,15 @@ def test_bf16_mixed_precision_step_against_jax(rng, monkeypatch):
     jloss_fn = jlosses.get_sde_loss_fn(jsde.SubVPSDE(**sde_kw),
                                        jlosses.mixed_precision_apply(j_apply(jcfg)), True,
                                        reduce_mean=True)
-    jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn))(jparams, jax.random.PRNGKey(0),
-                                                          jnp.asarray(batch))
-    np.testing.assert_allclose([loss16, float(jloss)], [loss32, loss32], rtol=2e-3)
-    np.testing.assert_allclose(loss16, float(jloss), rtol=2e-3)
+    jloss, jgrads = jax.value_and_grad(jloss_fn)(jparams, jax.random.PRNGKey(0),
+                                                 jnp.asarray(batch))
+    np.testing.assert_allclose(loss16, float(jloss), rtol=2e-5)
+    assert abs(loss16 - loss32) > 1e-4 * loss32
     jflat = jckpt.tree_to_flat(jgrads)
     for name, g32 in grads32.items():
-        norm = np.linalg.norm(g32)
-        for label, g in (("port", grads16[name]), ("jax", np.asarray(jflat[name]))):
-            assert g.dtype == np.float32, (label, name)
-            assert np.linalg.norm(g - g32) < 0.1 * norm, (label, name)
+        g16, want = grads16[name], np.asarray(jflat[name])
+        assert g16.dtype == want.dtype == np.float32, name
+        assert np.linalg.norm(g16 - want) <= 0.25 * np.linalg.norm(g32 - want), name
 
     tconf, _ = optim_configs()
     optimizer = tlosses.get_optimizer(tconf)
@@ -515,12 +518,27 @@ def test_trainer_eval_metrics_and_conditional_training(tmp_path):
     class Held:
         db_3d = rng.randn(40, 17, 3).astype(np.float32) * 0.1
 
+    class Writer:  # TensorBoard's SummaryWriter, as the trainer calls it
+        scalars = {}
+
+        def add_scalar(self, tag, value, step):
+            self.scalars.setdefault(tag, []).append((step, value))
+
     tcfg = ttrainer.TrainerConfig(n_epochs=1, eval_freq=1, seed=0, micro_solve_iters=5)
     cfg = tsm.ScoreMLPConfig(hidden_dim=64, embed_dim=32, n_blocks=1, num_scales=20)
     _, hist, evals = ttrainer.train_loop(config, FakeDS(rng), Held(), output_dir=str(tmp_path),
-                                         model_cfg=cfg, trainer_cfg=tcfg, device="cpu")
+                                         model_cfg=cfg, trainer_cfg=tcfg, device="cpu",
+                                         writer=Writer())
     assert np.isfinite(hist).all() and np.isfinite(list(evals[0].values())).all()
     assert set(evals[0]) == {"prior_mahalanobis", "zeroshot_mpjpe_mm"}
+    scalars = Writer.scalars
+    assert scalars["Loss/train"] == [(0, hist[0])]
+    assert np.mean([v for _, v in scalars["train_loss"]]) == pytest.approx(hist[0])
+    assert [i for i, _ in scalars["train_loss"]] == list(range(len(scalars["train_loss"])))
+    for key, value in evals[0].items():
+        assert scalars[f"Eval/{key}"] == [(0, value)]
+    assert set(scalars) == {"train_loss", "Loss/train", "opt_LR_1", "Eval/prior_mahalanobis",
+                            "Eval/zeroshot_mpjpe_mm"}
 
     class Flippable(PoseDataset):
         def __init__(self):  # a training set held in memory, with the flip aug

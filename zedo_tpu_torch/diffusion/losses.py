@@ -156,21 +156,20 @@ def get_ddpm_loss_fn(vpsde: VPSDE, model_apply: ModelApply, train: bool,
     return loss_fn
 
 
-def _cast(v, dtype):
-    return v.to(dtype) if torch.is_tensor(v) and v.dtype == torch.float32 else v
-
-
 def mixed_precision_apply(model_apply: ModelApply, compute_dtype=torch.bfloat16) -> ModelApply:
-    """Mixed precision for a model_apply: the f32 params, the input and the
-    condition cast explicitly to `compute_dtype` for the forward (every
-    product runs in it), the output cast back to f32. The casts are
-    differentiable, so the gradients land on the f32 master weights and the
-    loss, gradients and Adam moments stay f32."""
+    """Mixed precision for a model_apply, as the JAX package's: the f32
+    params and the input cast explicitly to `compute_dtype` for the forward,
+    the output cast back to f32. The time embedding, the condition and the
+    mask stay f32, so a sum with them promotes the activations to f32 (as
+    jnp promotes them) and the products after the first read bf16-rounded
+    weights in f32. The casts are differentiable, so the gradients land on
+    the f32 master weights and the loss, gradients and Adam moments stay
+    f32."""
 
     def apply(p, x, labels, cond, msk, train=False, generator=None):
-        p_c = tree_map(lambda a: _cast(a, compute_dtype), p)
-        out = model_apply(p_c, x.to(compute_dtype), labels, _cast(cond, compute_dtype),
-                          _cast(msk, compute_dtype), train=train, generator=generator)
+        p_c = tree_map(lambda a: a.to(compute_dtype) if a.dtype == torch.float32 else a, p)
+        out = model_apply(p_c, x.to(compute_dtype), labels, cond, msk, train=train,
+                          generator=generator)
         return out.float()
 
     return apply

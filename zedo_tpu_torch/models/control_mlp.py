@@ -88,7 +88,7 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: to
     def drop(v):
         return nn.dropout(v, cfg.dropout, train, generator)
 
-    temb = time_embedding(params, cfg, t_labels, batch.dtype)
+    temb = time_embedding(params, cfg, t_labels)
 
     # control branch seed: batch + act(zc_1(infant_cond))
     c = x + nn.silu(nn.linear(params["zc_layer_1"], params["infant_cond"]))

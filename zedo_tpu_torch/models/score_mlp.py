@@ -12,9 +12,7 @@ whose keys mirror the torch state_dict, plus a static `ScoreMLPConfig`.
     out = post_dense(h) -> [B, j, d]
 
 With train=True every SiLU output goes through dropout (cfg.dropout), its
-masks drawn from the `generator` passed in. A bf16 batch (mixed-precision
-training, diffusion/losses.mixed_precision_apply) runs the time embedding's
-products in bf16 too.
+masks drawn from the `generator` passed in.
 """
 from __future__ import annotations
 
@@ -125,20 +123,16 @@ def init_params(gen: torch.Generator, cfg: ScoreMLPConfig, dtype=torch.float32,
     return p
 
 
-def time_embedding(params: Params, cfg: ScoreMLPConfig, t_labels: torch.Tensor,
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def time_embedding(params: Params, cfg: ScoreMLPConfig,
+                   t_labels: torch.Tensor) -> torch.Tensor:
     """Shared time embedding [B] -> [B, embed_dim]; t_labels are the
-    model-facing labels (t*999 for continuous sub-VP). The sinusoidal
-    features are computed in f32 and, when `dtype` is given, cast to it
-    before the shared projection."""
+    model-facing labels (t*999 for continuous sub-VP)."""
     if cfg.embedding_type == "fourier":
         temb = gaussian_fourier_projection(params["gauss_proj"]["W"], torch.log(t_labels))
     elif cfg.embedding_type == "positional":
         temb = get_timestep_embedding(t_labels, cfg.embed_dim)
     else:
         raise ValueError(f"time embedding type {cfg.embedding_type} unknown.")
-    if dtype is not None:
-        temb = temb.to(dtype)
     return nn.silu(nn.linear(params["shared_time_embed"]["0"], temb))
 
 
@@ -211,7 +205,7 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
     """Full forward; condition/mask are accepted and ignored, as in the
     reference's unconditional model."""
     del condition, mask
-    temb = time_embedding(params, cfg, t_labels, batch.dtype)
+    temb = time_embedding(params, cfg, t_labels)
     if intermediates is not None:
         intermediates["temb"] = temb
     return apply_with_temb(params, cfg, batch, temb,

@@ -125,7 +125,7 @@ def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor, t_labels: to
 
     cond_h = nn.silu(nn.linear(params["cond_embed"]["0"], cond.reshape(bs, -1)))
 
-    temb = time_embedding(params, cfg, t_labels, batch.dtype)
+    temb = time_embedding(params, cfg, t_labels)
 
     x = batch.reshape(bs, -1)
     h = nn.linear(params["pre_dense"], x)

@@ -61,8 +61,8 @@ def parse_args(argv=None):
                         help="parsed and inert, as in the reference")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--compute_dtype", type=str, default="fp32", choices=["fp32", "bf16"],
-                        help="bf16 = mixed-precision train step (bf16 products, f32 "
-                             "loss/grads/Adam/master weights)")
+                        help="bf16 = mixed-precision train step (bf16 weights and input "
+                             "as in the JAX package; f32 loss/grads/Adam/master weights)")
     parser.add_argument("--model", type=str, default="score", choices=["score", "control", "cond"],
                         help="'control' trains the ControlNet adapter with the trunk frozen "
                              "(combine with --fine_tune to seed the trunk); 'cond' trains "

@@ -37,8 +37,6 @@ def parse_args(argv=None):
     parser.add_argument("--rows", type=str, default="5000,50000",
                         help="comma-separated batch sizes (infant and adult defaults)")
     parser.add_argument("--dtype", type=str, default="both", choices=["fp32", "bf16", "both"])
-    parser.add_argument("--hidden", type=int, default=1024)
-    parser.add_argument("--embed", type=int, default=512)
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
@@ -64,7 +62,7 @@ def main(argv=None) -> list[dict]:
     """Run the benchmark; returns one record per dtype and batch size."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = score_mlp.ScoreMLPConfig(hidden_dim=args.hidden, embed_dim=args.embed)
+    cfg = score_mlp.ScoreMLPConfig()  # full size: hidden 1024, embed 512
     optim = Config(optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8, warmup=5000, grad_clip=1.0,
                    weight_decay=0)
     optimizer = losses_lib.get_optimizer(Config(optim=optim))

@@ -89,8 +89,8 @@ class TrainerConfig:
     micro_solve: bool = True
     micro_solve_poses: int = 16
     micro_solve_iters: int = 100
-    # 'bf16' runs the train forward and backward products in bf16 while the
-    # loss, gradients, Adam moments and master weights stay f32
+    # 'bf16' casts the weights and the input of the train forward to bf16
+    # while the loss, gradients, Adam moments and master weights stay f32
     # (losses.mixed_precision_apply); eval sampling and the metrics stay f32
     compute_dtype: str = "fp32"
 
