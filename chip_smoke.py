@@ -79,7 +79,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      full 1000-step schedule), no kernel: run.sample --task gen at 10,000
      rows, comp3d --jlist 14,15,16 (the known joints end at the
      condition's marginal mean at eps) and den on those samples, --sampler
-     ode at 1,024 (its NFE), --guide sym and --guide match at 1,024.
+     ode at 1,024 (its NFE), --guide sym and --guide match at 1,024;
+ 12. multi-GPU on the one card (phase_multigpu), at the published width
+     with seeded weights and the full schedule: world size 1 over NCCL
+     (solve_sharded at 886 x 50 bit-identical to pipeline.solve, kernel #1
+     on all 1000 OIL forwards), then two ranks spawned on cuda:0 over Gloo
+     (this script with --multigpu-rank, torchrun's environment): the
+     sharded solve at 886 x 50 with and without the reprojection trace and
+     the sharded infant solve on 2,000 MINI-RGBD frames x 20, each rank's
+     rows bit-identical to `solve` on its block and kernel #1 on all 1000
+     OIL forwards of each rank, both ranks holding the same gathered
+     result, the distance from the whole batch solved at once printed;
+     ZeDOEstimator(mesh="dp2").predict on 64 poses against one device;
+     run.train_pose_mini --mesh dp2 and --mesh dp1,tp2 (4 steps at the
+     mini batch) against --mesh off, dp2's replicas bit-identical. Its
+     seconds are two ranks sharing one card, not a scaling number.
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -1413,6 +1427,327 @@ def phase_sampling(torch, sk, split, tsm, card):
     return result
 
 
+# the multi-GPU phase: two ranks share the one card over Gloo
+MULTI_RANKS = 2
+SERVE_POSES = 64
+MULTI_TIMEOUT_S = 600
+# max |mesh - one device| (m) of the trained fixture's predict (bf16, kernel
+# #1 at hidden 256): the sharded solve differs from the whole batch's only
+# in IPO's loss, a mean over each rank's own rows (as in JAX's shard_map),
+# which puts Adam's eps at another weight. With random weights at full width
+# the solve is chaotic (a random prior throws poses metres away): there the
+# distance is printed, each rank's rows held bit-identical to `solve` on its
+# block instead.
+WHOLE_BATCH_TOL_M = 1e-3
+# the mesh's training against one device: losses at f32 rounding, parameters
+# as the CPU tests hold them (Adam's m / sqrt(v) turns the rounding of a
+# gradient near zero into a fraction of the learning rate)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-4, 1e-4, 1e-3
+MULTI_TRAIN_SPECS = ("dp2", "dp1,tp2")
+
+
+def multigpu_inputs():
+    """(adult request, infant request) of the multi-GPU phase: the 886 x 50
+    H36M-scale request and 2,000 MINI-RGBD-like frames x 20 hypotheses."""
+    from zedo_tpu_torch import bench
+    from zedo_tpu_torch.data.mini_rgbd import mini_intrinsics
+
+    rng = np.random.RandomState(0)
+    cam = infant_scenes(rng, MINI_FRAMES, 17, 1.0)
+    k = mini_intrinsics()
+    rel = cam[0] - cam[0, :1]
+    clusters = (rel[None] + rng.randn(INFANT_HYPO, 17, 3) * 0.01).astype(np.float32)
+    infant = (pinhole(cam, k), np.tile(k, (MINI_FRAMES, 1, 1)).astype(np.float32), clusters)
+    return bench.build_inputs(HEADLINE_N, HEADLINE_S), infant
+
+
+def multigpu_weights(torch, tsm, dev):
+    return to_bf16(torch, tsm.init_params(torch.Generator().manual_seed(0), tsm.ScoreMLPConfig(),
+                                          device=dev))
+
+
+def fixture_estimator(tbt, presets, ZeDOEstimator, dev, mesh=None):
+    """phase_accuracy's bf16 estimator of the trained fixture, on `mesh`."""
+    family = np.load(os.path.join(tbt.FIXTURE, "family.npz"))
+    preset = presets.h36m(hidden_dim=int(family["hidden"]), embed_dim=int(family["embed"]))
+    return ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, preset=preset, dtype="bf16", batch_bucket=8, device=dev,
+        mesh=mesh).with_schedule(FIXTURE_OIL, ipo_iterations=FIXTURE_IPO)
+
+
+def multigpu_rank(root: str) -> int:
+    """One rank of the two-rank run on cuda:0 over Gloo (started by
+    phase_multigpu with torchrun's environment): the sharded solves, the
+    serving mesh and the training CLI on meshes; each solve's rows against
+    `solve` on the rank's block alone, bit for bit. Writes rank<r>.npz and
+    rank<r>.json under root."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from zedo_tpu_torch import bench_trained as tbt
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.models import score_mlp as tsm
+    from zedo_tpu_torch.ops.kernels import score_kernel as sk
+    from zedo_tpu_torch.parallel import mesh as mesh_lib
+    from zedo_tpu_torch.run import train_pose_mini
+    from zedo_tpu_torch.serving import ZeDOEstimator
+    from zedo_tpu_torch.zeroshot import infant, pipeline
+
+    dev = mesh_lib.init_distributed(backend="gloo", device="cuda:0")
+    rank = dist.get_rank()
+    mesh = mesh_lib.default_mesh(device=dev)
+    arrays, rec = {}, {}
+    preset = presets.h36m()
+    cfg = preset.model_cfg
+    params = multigpu_weights(torch, tsm, dev)
+    (px, conf, k, clusters), (ipx, ik, iclusters) = multigpu_inputs()
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        rows = mesh.row_slice(HEADLINE_N)
+        for tag, track in (("solve", False), ("trace", True)):
+            zcfg = dc.replace(preset.zcfg, oil=dc.replace(preset.zcfg.oil, track_reproj=track))
+            sk.reset_launch_counts()
+            res, secs = timed(lambda: pipeline.solve_sharded(
+                mesh, params, cfg, preset.sde, preset.sampler, zcfg, put(clusters), px, conf, k))
+            launches = sk.launch_counts["fused_score_forward"]
+            alone = pipeline.solve(params, cfg, preset.sde, preset.sampler, zcfg, put(clusters),
+                                   put(px[rows]), put(conf[rows]), put(k[rows]))
+            rec[tag] = {"s": secs, "launches": launches,
+                        "bitwise": bool(torch.equal(res.poses[rows], alone.poses)
+                                        and torch.equal(res.translations[rows],
+                                                        alone.translations))}
+            arrays[f"{tag}_poses"] = res.poses.cpu().numpy()
+            if track:
+                arrays["trace"] = res.reproj_px.cpu().numpy()
+                arrays["trace_alone"] = alone.reproj_px.cpu().numpy()
+
+        mini = presets.from_optim_config(presets.optim_config("mini"))
+        izcfg = dc.replace(mini.zcfg, oil=dc.replace(mini.zcfg.oil, track_reproj=True))
+        rows = mesh.row_slice(MINI_FRAMES)
+        sk.reset_launch_counts()
+        res, secs = timed(lambda: infant.solve_infant_sharded(
+            mesh, params, tsm.apply, mini.model_cfg, mini.sde, mini.sampler, izcfg,
+            put(iclusters), ipx, ik))
+        launches = sk.launch_counts["fused_score_forward"]
+        alone = infant.solve_infant(params, tsm.apply, mini.model_cfg, mini.sde, mini.sampler,
+                                    izcfg, put(iclusters), put(ipx[rows]), put(ik[rows]))
+        rec["infant"] = {"s": secs, "launches": launches,
+                         "bitwise": bool(torch.equal(res.poses[rows], alone.poses))}
+        arrays["infant_poses"] = res.poses.cpu().numpy()
+
+        est = ZeDOEstimator(params=params, model_cfg=cfg, sde=preset.sde, sampler=preset.sampler,
+                            zcfg=preset.zcfg, clusters=clusters, device=dev, batch_bucket=2,
+                            mesh="dp2")
+        sk.reset_launch_counts()
+        out, secs = timed(lambda: est.predict(px[:SERVE_POSES], k[:SERVE_POSES],
+                                              confidence=conf[:SERVE_POSES]))
+        rec["serve"] = {"s": secs, "launches": sk.launch_counts["fused_score_forward"]}
+        arrays["serve_poses"], arrays["serve_best"] = out["poses"], out["best"]
+        _, fk, fpx = tbt.make_scenes(np.load(os.path.join(tbt.FIXTURE, "family.npz")),
+                                     FIXTURE_SCENES)
+        arrays["fixture_poses"] = fixture_estimator(tbt, presets, ZeDOEstimator, dev,
+                                                    "dp2").predict(fpx, fk)["poses"]
+
+    for spec in MULTI_TRAIN_SPECS:
+        argv = ["--config", "mini", "--epochs", "1", "--log_name", f"mesh_{spec}",
+                "--override", f"OUTPUT_DIR={root}/output", "--mesh", spec, "--device", "cuda:0"]
+        out, secs = timed(lambda: train_pose_mini.main(argv))
+        rec[f"train_{spec}"] = {"s": secs, "steps": out["state"].step,
+                                "losses": list(out["history"]), "output_dir": out["output_dir"]}
+        if spec == "dp2":  # whole replicas: each rank's own
+            for name, leaf in flat_params(out["state"].params).items():
+                arrays[f"train_dp2/{name}"] = leaf.cpu().numpy()
+    np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multigpu(torch, sk, tsm, card):
+    """The multi-GPU path on the one card, at the published width with seeded
+    weights and the full schedule: (a) world size 1 over NCCL, in this
+    process: pipeline.solve_sharded at 886 x 50, bit-identical to
+    pipeline.solve, kernel #1 on all 1000 OIL forwards; (b) two ranks
+    spawned on cuda:0 over Gloo (torchrun's environment, multigpu_rank):
+    solve_sharded at 886 x 50 without and with the reprojection trace,
+    solve_infant_sharded on 2,000 MINI-RGBD frames x 20, each rank's rows
+    bit-identical to `solve` on its block and kernel #1 on all 1000 OIL
+    forwards of each rank; ZeDOEstimator(mesh="dp2").predict on a 64-pose
+    request against one device; run.train_pose_mini --config mini --mesh
+    dp2 and --mesh dp1,tp2, 4 steps at the mini batch of 5,000, against
+    --mesh off (losses, parameters; dp2's replicas bit-identical). The
+    seconds of each run are two ranks sharing one card, not a scaling
+    number."""
+    import torch.distributed as dist
+
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.parallel import mesh as mesh_lib
+    from zedo_tpu_torch.parallel import multiprocess_check
+    from zedo_tpu_torch.run import train_pose_mini
+    from zedo_tpu_torch.serving import ZeDOEstimator
+    from zedo_tpu_torch.utils.checkpoint import restore_native
+    from zedo_tpu_torch.zeroshot import pipeline
+
+    result = {"note": "two ranks sharing one card: not a scaling number", "card": card}
+    preset = presets.h36m()
+    cfg = preset.model_cfg
+    (px, conf, k, clusters), (ipx, ik, iclusters) = multigpu_inputs()
+    dev = mesh_lib.init_distributed(backend="nccl", rank=0, world_size=1, device="cuda:0",
+                                    init_method=f"tcp://localhost:{multiprocess_check.free_port()}")
+    params = multigpu_weights(torch, tsm, dev)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    try:
+        mesh = mesh_lib.default_mesh(device=dev)
+        with torch.no_grad():
+            sk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipeline.solve_sharded(mesh, params, cfg, preset.sde, preset.sampler,
+                                         preset.zcfg, put(clusters), px, conf, k)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = sk.launch_counts["fused_score_forward"]
+            whole = pipeline.solve(params, cfg, preset.sde, preset.sampler, preset.zcfg,
+                                   put(clusters), put(px), put(conf), put(k))
+    finally:
+        dist.destroy_process_group()
+    same = torch.equal(res.poses, whole.poses) and torch.equal(res.translations,
+                                                               whole.translations)
+    log(f"multi-GPU, world size 1 over NCCL on {card}: solve_sharded {HEADLINE_N} x "
+        f"{HEADLINE_S} in {secs:.3f} s, kernel #1 launches {launches}, bit-identical to "
+        f"pipeline.solve: {same}")
+    if launches != 1000 or not same:
+        fail(f"world size 1 over NCCL: launches {launches}, bit-identical {same}")
+    result["nccl_world_1"] = {"s": secs, "launches": launches, "bitwise": same}
+    whole_poses = whole.poses.cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as root:
+        write_mini_workspace(root, np.random.RandomState(3), TRAIN_VAL_FRAMES,
+                             n_train=TRAIN_FRAMES)
+        t0 = time.perf_counter()
+        multiprocess_check.run_ranks([os.path.abspath(__file__), "--multigpu-rank", root],
+                                     MULTI_RANKS, timeout=MULTI_TIMEOUT_S, cwd=root)
+        wall = time.perf_counter() - t0
+        arrays = [dict(np.load(os.path.join(root, f"rank{r}.npz"))) for r in range(MULTI_RANKS)]
+        recs = []
+        for r in range(MULTI_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        log(f"multi-GPU, {MULTI_RANKS} ranks on cuda:0 over Gloo (sharing one card) on {card}: "
+            f"{wall:.1f} s for the ranks' run, processes included")
+        for key in arrays[0]:
+            if key != "trace_alone" and not np.array_equal(arrays[0][key], arrays[1][key]):
+                fail(f"multi-GPU: the ranks hold different {key}")
+        for tag, n in (("solve", 1000), ("trace", 1000), ("infant", 1000)):
+            for r, rec in enumerate(recs):
+                log(f"  rank {r} {tag}: {rec[tag]['s']:.3f} s (two ranks sharing one card), "
+                    f"kernel #1 launches {rec[tag]['launches']}, rows bit-identical to "
+                    f"solve on its block: {rec[tag]['bitwise']}")
+                if rec[tag]["launches"] != n or not rec[tag]["bitwise"]:
+                    fail(f"multi-GPU {tag} rank {r}: {rec[tag]}")
+        per_pose = np.abs(arrays[0]["solve_poses"] - whole_poses).max(axis=(2, 3))
+        diff = float(per_pose.max())
+        log(f"  solve_sharded on 2 ranks against the whole batch solved at once (random "
+            f"weights, chaotic): max |diff| {diff:.3g} m, median {np.median(per_pose):.3g} m, "
+            f"{(per_pose <= 1e-3).mean():.3f} of the poses within 1 mm")
+        trace_err = float(np.abs(arrays[0]["trace"] - (arrays[0]["trace_alone"]
+                                                       + arrays[1]["trace_alone"]) / 2).max())
+        log(f"  trace: max |mean over ranks - mean of the blocks' traces solved alone| "
+            f"{trace_err:.3g} px (of {float(np.abs(arrays[0]['trace']).max()):.3g})")
+        if not trace_err <= 1e-5 * max(1.0, float(np.abs(arrays[0]["trace"]).max())):
+            fail(f"multi-GPU trace: {trace_err}")
+        if arrays[0]["infant_poses"].shape != (MINI_FRAMES, INFANT_HYPO, 17, 3) \
+                or not np.isfinite(arrays[0]["infant_poses"]).all():
+            fail(f"multi-GPU infant poses {arrays[0]['infant_poses'].shape}")
+
+        with torch.no_grad():
+            est = ZeDOEstimator(params=params, model_cfg=cfg, sde=preset.sde,
+                                sampler=preset.sampler, zcfg=preset.zcfg, clusters=clusters,
+                                device=dev, batch_bucket=2)
+            single = est.predict(px[:SERVE_POSES], k[:SERVE_POSES],
+                                 confidence=conf[:SERVE_POSES])
+        serve_diff = float(np.abs(arrays[0]["serve_poses"] - single["poses"]).max())
+        best_same = float((arrays[0]["serve_best"] == single["best"]).mean())
+        log(f"  ZeDOEstimator(mesh='dp2').predict, {SERVE_POSES} poses x {HEADLINE_S}: "
+            f"{recs[0]['serve']['s']:.3f} s (two ranks sharing one card), kernel #1 launches "
+            f"{[r['serve']['launches'] for r in recs]}, max |diff| {serve_diff:.3g} m from one "
+            f"device (random weights), same best hypothesis for {best_same:.3f} of the poses")
+        if any(r["serve"]["launches"] != 1000 for r in recs) \
+                or not np.isfinite(arrays[0]["serve_poses"]).all():
+            fail(f"multi-GPU serving: {[r['serve'] for r in recs]}")
+        from zedo_tpu_torch import bench_trained as tbt
+
+        gt, fk, fpx = tbt.make_scenes(np.load(os.path.join(tbt.FIXTURE, "family.npz")),
+                                      FIXTURE_SCENES)
+        one = fixture_estimator(tbt, presets, ZeDOEstimator, dev).predict(fpx, fk)["poses"]
+        fixture_diff = float(np.abs(arrays[0]["fixture_poses"] - one).max())
+        mm = tbt.best_mpjpe(arrays[0]["fixture_poses"], gt)
+        ref = JAX_FIXTURE_MPJPE_MM["bf16"]
+        log(f"  trained fixture through ZeDOEstimator(mesh='dp2') (bf16, kernel #1): max "
+            f"|diff| {fixture_diff:.3g} m from one device (tolerance {WHOLE_BATCH_TOL_M}), "
+            f"best-hypothesis MPJPE {mm:.3f} mm (JAX package {ref:.3f}, tolerance "
+            f"{FIXTURE_TOL_MM})")
+        if not fixture_diff <= WHOLE_BATCH_TOL_M or not abs(mm - ref) <= FIXTURE_TOL_MM:
+            fail(f"multi-GPU trained fixture: {fixture_diff} m, {mm} mm")
+
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            argv = ["--config", "mini", "--epochs", "1", "--log_name", "single", "--override",
+                    f"OUTPUT_DIR={root}/output", "--mesh", "off"]
+            t0 = time.perf_counter()
+            single = train_pose_mini.main(argv)
+            single_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        want = restore_native(os.path.join(single["output_dir"], "checkpoint_0.pth"), "cpu")
+        log(f"  run.train_pose_mini --mesh off: {single['state'].step} steps, losses "
+            f"{single['history']}, {single_s:.3f} s")
+        for spec in MULTI_TRAIN_SPECS:
+            rec = recs[0][f"train_{spec}"]
+            got = restore_native(os.path.join(rec["output_dir"], "checkpoint_0.pth"), "cpu")
+            a, b = flat_params(got["params"]), flat_params(want["params"])
+            worst = max(float(((a[n] - b[n]).abs() - TRAIN_PARAM_RTOL * b[n].abs()).max())
+                        for n in b)
+            loss_err = abs(rec["losses"][0] - single["history"][0]) / abs(single["history"][0])
+            log(f"  run.train_pose_mini --mesh {spec}: {rec['steps']} steps of {TRAIN_BATCH} "
+                f"rows in {rec['s']:.3f} s (two ranks sharing one card), loss "
+                f"{rec['losses']} ({loss_err:.3g} relative from --mesh off), parameters at "
+                f"most {worst:.3g} beyond {TRAIN_PARAM_RTOL} relative of --mesh off's")
+            if rec["steps"] != TRAIN_FRAMES // TRAIN_BATCH or not loss_err <= TRAIN_LOSS_RTOL \
+                    or not worst <= TRAIN_PARAM_ATOL:
+                fail(f"multi-GPU training --mesh {spec}: {rec}, params {worst}")
+            result[f"train_{spec}"] = {"s": rec["s"], "losses": rec["losses"],
+                                       "loss_rel_err": loss_err, "param_excess": worst}
+        result["train_single_s"] = single_s
+        replicas = [k for k in arrays[0] if k.startswith("train_dp2/")]
+        if not replicas:
+            fail("multi-GPU training: no dp2 replicas saved")
+    for tag in ("solve", "trace", "infant", "serve"):
+        result[tag] = [r[tag] for r in recs]
+    result.update(ranks_wall_s=wall, whole_batch_max_diff_m=diff, trace_err_px=trace_err,
+                  serve_max_diff_m=serve_diff, serve_best_same=best_same,
+                  fixture_max_diff_m=fixture_diff, fixture_mpjpe_mm=mm)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1482,6 +1817,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sampling = phase_sampling(torch, sk, split, tsm, card)
     log(f"phase sampling: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multigpu = phase_multigpu(torch, sk, tsm, card)
+    entry["launches_multigpu"] = {
+        "nccl_world_1": multigpu["nccl_world_1"]["launches"],
+        **{f"gloo_rank_{r}_{tag}": multigpu[tag][r]["launches"]
+           for tag in ("solve", "trace", "infant", "serve") for r in range(MULTI_RANKS)}}
+    log(f"phase multi-GPU: {time.perf_counter() - t0:.1f} s")
     for e in (entry, entry_split):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
@@ -1490,7 +1832,7 @@ def main() -> int:
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
-                      "sampling": sampling,
+                      "sampling": sampling, "multigpu": multigpu,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)
@@ -1501,4 +1843,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multigpu-rank"]:  # one rank of phase_multigpu's run
+        sys.exit(multigpu_rank(sys.argv[2]))
     sys.exit(main())

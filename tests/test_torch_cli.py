@@ -447,7 +447,7 @@ def test_train_cli_on_a_mini_workspace(tmp_path, monkeypatch, capsys):
     cond = _train(tmp_path, "--model", "cond", "--epochs", "1", "--rotflip", name="cond")
     assert np.isfinite(cond["history"]).all()
 
-    for flags, err, msg in ((["--mesh", "dp2"], NotImplementedError, "item 15"),
+    for flags, err, msg in ((["--mesh", "dp2"], ValueError, "needs 2 devices, have 1"),
                             (["--model", "cond", "--aug"], SystemExit, "--aug"),
                             (["--fine_tune"], ValueError, "--fine_tune_ckpt")):
         with pytest.raises(err, match=msg):

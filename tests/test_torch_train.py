@@ -38,6 +38,7 @@ from zedo_tpu_torch.models import nn as tnn
 from zedo_tpu_torch.models import registry as treg
 from zedo_tpu_torch.models import score_mlp as tsm
 from zedo_tpu_torch.models import score_mlp_cond as tcond
+from zedo_tpu_torch.parallel.mesh import Mesh
 from zedo_tpu_torch.train import trainer as ttrainer
 from zedo_tpu_torch.utils import checkpoint as tckpt
 
@@ -555,5 +556,6 @@ def test_trainer_eval_metrics_and_conditional_training(tmp_path):
     with pytest.raises(ValueError, match="align"):
         ttrainer.train_loop(config, ds, output_dir=str(tmp_path), model_cfg=cfg,
                             trainer_cfg=tcfg, device="cpu", condition_data=ds.db_2d[:3])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttrainer.train_loop(config, ds, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs a 'data' axis"):
+        ttrainer.train_loop(config, ds, mesh=Mesh(np.arange(1), ("model",), device="cpu"),
+                            device="cpu")

@@ -1,8 +1,23 @@
-"""Batch padding to a bucket multiple (the port's own copy of `pad_batch` and
-`unpad` from zedo_tpu/data/sharding.py; numpy only)."""
+"""Eval-batch sharding helpers (the port's own copy of `contiguous_chunks`,
+`pad_batch` and `unpad` from zedo_tpu/data/sharding.py; numpy only).
+
+A mesh's rank of data index r takes the r-th of `contiguous_chunks(N, D)`
+when D divides N, which is what `pad_batch` makes of any N."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def contiguous_chunks(n: int, num_shards: int) -> list[np.ndarray]:
+    """Pad-free contiguous index chunks, sizes differing by at most 1: rank r
+    gets indices [start_r, end_r)."""
+    base, rem = divmod(n, num_shards)
+    chunks, start = [], 0
+    for r in range(num_shards):
+        size = base + (1 if r < rem else 0)
+        chunks.append(np.arange(start, start + size))
+        start += size
+    return chunks
 
 
 def pad_batch(arrays, multiple: int, axis: int = 0):

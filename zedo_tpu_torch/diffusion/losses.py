@@ -24,17 +24,18 @@ from zedo_tpu_torch.diffusion import ema as ema_lib
 from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import SDE, VESDE, VPSDE, _bcast, _randn
 from zedo_tpu_torch.models.nn import tree_map, tree_to_flat
+from zedo_tpu_torch.parallel import draws
 
 # model_apply(params, x, labels, condition, mask, train=False, generator=None)
 ModelApply = Callable[..., torch.Tensor]
 
 
-def _uniform(gen: torch.Generator, n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.rand(n, generator=gen, dtype=like.dtype, device=like.device)
+def _uniform(gen, n: int, like: torch.Tensor) -> torch.Tensor:
+    return draws.rand(gen, (n,), dtype=like.dtype, device=like.device)
 
 
-def _randint(gen: torch.Generator, high: int, n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.randint(0, high, (n,), generator=gen, device=like.device)
+def _randint(gen, high: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    return draws.randint(gen, high, (n,), device=like.device)
 
 
 def lr_schedule(config) -> Callable[[int], float]:
@@ -65,9 +66,17 @@ class Optimizer:
                                 eps=self.eps, weight_decay=self.weight_decay,
                                 fused=fused or None)
 
-    def step(self, adam: torch.optim.Adam, trainable: list, step: int) -> None:
+    def step(self, adam: torch.optim.Adam, trainable: list, step: int,
+             grad_norm: Optional[Callable[[list], torch.Tensor]] = None) -> None:
+        """grad_norm: the global norm of the leaves' gradients where it is not
+        their own (tensor-parallel shards), clipped as clip_grad_norm_ does."""
         if self.grad_clip >= 0:
-            torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
+            if grad_norm is None:
+                torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
+            else:
+                grads = [p.grad for p in trainable]
+                coef = torch.clamp(self.grad_clip / (grad_norm(grads) + 1e-6), max=1.0)
+                torch._foreach_mul_(grads, coef)
         for group in adam.param_groups:
             group["lr"] = self.schedule(step)
         adam.step()
@@ -208,7 +217,8 @@ def init_train_state(params: dict, optimizer: Optimizer, ema_decay: float) -> Tr
 
 def get_step_fn(sde: SDE, model_apply: ModelApply, optimizer: Optional[Optimizer], train: bool,
                 reduce_mean: bool = False, continuous: bool = True,
-                likelihood_weighting: bool = False, grad_mask: Optional[dict] = None):
+                likelihood_weighting: bool = False, grad_mask: Optional[dict] = None,
+                sync=None):
     """step_fn(state, gen, batch, condition=None, mask=None) -> (state, loss).
 
     Train: loss and gradients of the trainable leaves, clip, Adam at the
@@ -216,7 +226,10 @@ def get_step_fn(sde: SDE, model_apply: ModelApply, optimizer: Optional[Optimizer
     Eval: the loss under the EMA params. grad_mask: optional bool dict
     shaped like the params; False leaves stay frozen (the reference's
     requires_grad=False / ControlNet freeze()). The loss stays on the
-    device."""
+    device. sync: the reductions of a step on a mesh (train.trainer's
+    MeshSync): the draws of the global batch sliced to this rank
+    (`sync.generator`), the gradients and the loss averaged over the mesh
+    (`sync.reduce`) and the global gradient norm (`sync.grad_norm`)."""
     if continuous:
         loss_fn = get_sde_loss_fn(sde, model_apply, train, reduce_mean=reduce_mean,
                                   continuous=True, likelihood_weighting=likelihood_weighting)
@@ -241,16 +254,25 @@ def get_step_fn(sde: SDE, model_apply: ModelApply, optimizer: Optional[Optimizer
     flat_mask = tree_to_flat(grad_mask) if grad_mask is not None else None
 
     def step_fn(state: TrainState, gen, batch, condition=None, mask=None):
-        trainable = [p for n, p in state.leaves() if flat_mask is None or flat_mask[n]]
+        names, trainable = zip(*[(n, p) for n, p in state.leaves()
+                                 if flat_mask is None or flat_mask[n]])
         for p in trainable:
             p.requires_grad_(True)
+        if sync is not None:
+            gen = sync.generator(gen, batch)
         loss = loss_fn(state.params, gen, batch, condition, mask)
         # a leaf the forward does not read (the ControlNet's dense2_copy)
         # gets a zero gradient, as under jax.grad
-        for p, g in zip(trainable, torch.autograd.grad(loss, trainable, allow_unused=True)):
-            p.grad = g if g is not None else torch.zeros_like(p)
+        grads = [g if g is not None else torch.zeros_like(p) for p, g in
+                 zip(trainable, torch.autograd.grad(loss, trainable, allow_unused=True))]
+        grad_norm = None
+        if sync is not None:
+            grads, loss = sync.reduce(names, grads, loss)
+            grad_norm = sync.grad_norm(names)
+        for p, g in zip(trainable, grads):
+            p.grad = g
         with torch.no_grad():
-            optimizer.step(state.opt_state, trainable, state.step)
+            optimizer.step(state.opt_state, list(trainable), state.step, grad_norm)
         state.opt_state.zero_grad(set_to_none=True)
         state.step += 1
         state.ema = ema_lib.update(state.ema, state.params)

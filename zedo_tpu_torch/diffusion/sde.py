@@ -15,6 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from zedo_tpu_torch.parallel import draws
+
 ScoreFn = Callable[..., torch.Tensor]  # (x, t, condition, mask) -> score
 
 
@@ -27,8 +29,10 @@ def _linspace(lo: float, hi: float, n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.linspace(lo, hi, n, dtype=torch.float32, device=like.device)
 
 
-def _randn(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=like.dtype, device=like.device)
+def _randn(gen, shape, like: torch.Tensor) -> torch.Tensor:
+    """N(0, 1) of `shape` from `gen` (a torch.Generator, or a
+    parallel.draws.ShardedGenerator on a mesh)."""
+    return draws.randn(gen, shape, dtype=like.dtype, device=like.device)
 
 
 @dataclasses.dataclass(frozen=True)

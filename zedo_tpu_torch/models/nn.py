@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
 
 import numpy as np
 import torch
+
+from zedo_tpu_torch.parallel import draws
 
 Params = dict
 
@@ -101,12 +102,13 @@ def tree_replace(tree: Params, flat: dict, prefix: str = "") -> Params:
             for k, v in tree.items()}
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout (torch semantics) with its keep mask drawn from
-    `generator`; the identity when train=False or rate == 0."""
+def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
+    """Inverted dropout (torch semantics) of a hidden activation [..., C]
+    with its keep mask drawn from `generator` (a torch.Generator, or a
+    parallel.draws.ShardedGenerator on a mesh); the identity when
+    train=False or rate == 0."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draws.rand(generator, x.shape, device=x.device, channels=True) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -4,8 +4,13 @@ and print MPJPE (protocol 1) and PA-MPJPE (protocol 2) by action.
     python -m zedo_tpu_torch.run.opt_main --config h36m \
         --ckpt_dir checkpoint/ --ckpt_name checkpoint_1500.pth --gt --hypo 50
 
-Port of zedo_tpu/run/opt_main.py on one device, with the same flags plus
-`--device` (default cuda; `--device cpu` runs on the CPU). `--config` takes
+Port of zedo_tpu/run/opt_main.py, with the same flags plus `--device`
+(default cuda; `--device cpu` runs on the CPU) and `--backend`. Launched as
+N ranks (`torchrun --nproc-per-node N -m zedo_tpu_torch.run.opt_main ...`)
+it pads the poses to a multiple of N, solves them on a data mesh of the N
+ranks (pipeline.solve_sharded, rank r on cuda:r unless --device names a
+card) and unpads, as the JAX CLI does on its device mesh; rank 0 prints the
+tables and writes --save. Otherwise it solves on one device. `--config` takes
 a preset name (h36m, 3dhp, 3dpw, ski, wild) or the path of one of the files
 configs/optim/concat_pose_optimization_<name>.py it restates; `--override
 key.path=value` changes one key. `--dtype auto` is bf16 on the card, where
@@ -25,7 +30,9 @@ import torch
 
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.data import DATASETS
+from zedo_tpu_torch.data.sharding import pad_batch
 from zedo_tpu_torch.models.nn import tree_map
+from zedo_tpu_torch.parallel.mesh import default_mesh, init_from_env, say
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device, resolve_dtype
@@ -69,7 +76,16 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="enforce config.ZeDO.batch == len(dataset)")
     parser.add_argument("--override", action="append", default=[],
                         help="config override, e.g. --override ZeDO.OIL_iterations=500")
-    parser.add_argument("--device", type=str, default="cuda")
+    add_device_args(parser)
+
+
+def add_device_args(parser: argparse.ArgumentParser) -> None:
+    """--device and --backend, the flags of every CLI that runs on a mesh."""
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda, cuda:k or cpu; under torchrun 'cuda' is each rank's own card")
+    parser.add_argument("--backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="torch.distributed backend under torchrun (default nccl on cuda, "
+                             "gloo on cpu; gloo lets ranks share one card)")
 
 
 def parse_args(argv=None):
@@ -116,22 +132,32 @@ def build_dataset(config, args):
                sample_interval=config.ZeDO.sample)
 
 
-def run_pipeline(config, args, dataset, stopwatch=None) -> torch.Tensor:
+def cli_mesh(args):
+    """The data mesh of the torchrun world when WORLD_SIZE > 1, else None."""
+    device = getattr(args, "device", "cuda")
+    if not init_from_env(getattr(args, "backend", None), device):
+        return None
+    return default_mesh(device=device)
+
+
+def run_pipeline(config, args, dataset, stopwatch=None, mesh=None) -> torch.Tensor:
     """Shared solve path of opt_main and inference: [N, S, j, 3] poses on
     the device. stopwatch: an optional utils.profiling.Stopwatch that times
-    the phases "ipo", "oil" and "solve", each to the end of the device's work."""
-    dev = resolve_device(getattr(args, "device", "cuda"))
+    the phases "ipo", "oil" and "solve", each to the end of the device's work.
+    mesh: a data mesh (cli_mesh) to solve on; every rank gets all N poses."""
+    dev = mesh.device if mesh is not None else resolve_device(getattr(args, "device", "cuda"))
+    log = say(mesh)
     preset = presets.from_optim_config(config)
     sample_poses = load_clusters(args.cluster_dir, config.data.dataset, args.hypo)
 
     ckpt_path = os.path.join(args.ckpt_dir, args.ckpt_name)
-    print(f"loading model from {ckpt_path}")
+    log(f"loading model from {ckpt_path}")
     params, step = load_any_checkpoint(ckpt_path, preset.model_cfg, use_ema=args.ema,
                                        device=dev)
-    print(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
+    log(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
     dtype = resolve_dtype(args.dtype, dev)
     if dtype != args.dtype:
-        print(f"--dtype auto -> {dtype} on {dev.type}")
+        log(f"--dtype auto -> {dtype} on {dev.type}")
     if dtype == "bf16":
         params = tree_map(lambda x: x.to(torch.bfloat16), params)
 
@@ -150,23 +176,32 @@ def run_pipeline(config, args, dataset, stopwatch=None) -> torch.Tensor:
     torch.manual_seed(args.seed)
     if stopwatch is None:
         stopwatch = profiling.Stopwatch()
-    profile_dir = getattr(args, "profile", None)
+    profile_dir = getattr(args, "profile", None) if mesh is None or mesh.is_main else None
     with contextlib.ExitStack() as stack:
         if profile_dir:
             stack.enter_context(profiling.trace(profile_dir))
         with torch.no_grad(), stopwatch.phase("solve"):
-            result = pipeline.solve(params, preset.model_cfg, preset.sde, preset.sampler,
-                                    preset.zcfg, put(sample_poses[:args.hypo]), put(cond2d),
-                                    put(conf), put(k), stopwatch=stopwatch)
+            clusters = put(sample_poses[:args.hypo])
+            if mesh is None:
+                poses = pipeline.solve(params, preset.model_cfg, preset.sde, preset.sampler,
+                                       preset.zcfg, clusters, put(cond2d), put(conf), put(k),
+                                       stopwatch=stopwatch).poses
+            else:
+                padded, mask = pad_batch({"cond2d": cond2d, "conf": conf, "k": k},
+                                         mesh.shape["data"])
+                poses = pipeline.solve_sharded(
+                    mesh, params, preset.model_cfg, preset.sde, preset.sampler, preset.zcfg,
+                    clusters, padded["cond2d"], padded["conf"], padded["k"], row_mask=mask,
+                    stopwatch=stopwatch).poses[:n]
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
     elapsed = stopwatch.totals["solve"]
     if profile_dir:
-        print(f"device trace written to {profile_dir}")
-    print(
-        f"solved {n} poses x {args.hypo} hypotheses x {preset.zcfg.oil.iterations} OIL steps "
-        f"on 1 device(s) in {elapsed:.2f}s ({n * args.hypo / elapsed:.1f} poses/s)")
-    return result.poses
+        log(f"device trace written to {profile_dir}")
+    log(f"solved {n} poses x {args.hypo} hypotheses x {preset.zcfg.oil.iterations} OIL steps "
+        f"on {1 if mesh is None else mesh.size} device(s) in {elapsed:.2f}s "
+        f"({n * args.hypo / elapsed:.1f} poses/s)")
+    return poses
 
 
 def evaluate(dataset, poses, stopwatch) -> tuple[float, float]:
@@ -179,19 +214,25 @@ def evaluate(dataset, poses, stopwatch) -> tuple[float, float]:
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {poses [N, S, j, 3] on the device, p1, p2 (m),
-    solve_s, eval_s, ipo_s, oil_s} for in-process callers."""
+    solve_s, eval_s, ipo_s, oil_s} for in-process callers (on a mesh, p1,
+    p2 and eval_s on the first rank only, None on the others)."""
     args = parse_args(argv)
-    resolve_device(args.device)
+    mesh = cli_mesh(args)
+    if mesh is None:
+        resolve_device(args.device)
     config = apply_overrides(load_config(args.config), args.override)
     dataset = build_dataset(config, args)
     sw = profiling.Stopwatch()
-    poses = run_pipeline(config, args, dataset, stopwatch=sw)
-    if args.save:
-        np.save(args.save, poses.cpu().numpy())
-    print("eval...")
-    p1, p2 = evaluate(dataset, poses, sw)
-    return {"poses": poses, "p1": p1, "p2": p2, "solve_s": sw.totals["solve"],
-            "eval_s": sw.totals["eval"], "ipo_s": sw.totals["ipo"], "oil_s": sw.totals["oil"]}
+    poses = run_pipeline(config, args, dataset, stopwatch=sw, mesh=mesh)
+    out = {"poses": poses, "p1": None, "p2": None, "eval_s": None,
+           **{f"{name}_s": sw.totals[name] for name in ("solve", "ipo", "oil")}}
+    if mesh is None or mesh.is_main:
+        if args.save:
+            np.save(args.save, poses.cpu().numpy())
+        print("eval...")
+        out["p1"], out["p2"] = evaluate(dataset, poses, sw)
+        out["eval_s"] = sw.totals["eval"]
+    return out
 
 
 if __name__ == "__main__":

@@ -5,8 +5,14 @@ longest bone and the mean MPJPE.
     python -m zedo_tpu_torch.run.opt_main_infant --config mini \
         --ckpt_dir checkpoint/ --ckpt_name infant.pth --hypo 1 [--control | --cond]
 
-Port of zedo_tpu/run/opt_main_infant.py on one device, with the same flags
-plus `--device` (default cuda; `--device cpu` runs on the CPU). `--config`
+Port of zedo_tpu/run/opt_main_infant.py, with the same flags plus
+`--device` (default cuda; `--device cpu` runs on the CPU) and `--backend`.
+Launched as N ranks (`torchrun --nproc-per-node N -m
+zedo_tpu_torch.run.opt_main_infant ...`) it pads the frames to a multiple
+of N and solves them on a data mesh of the ranks
+(infant.solve_infant_sharded; the trace averaged over the real frames),
+as the JAX CLI does on its device mesh; rank 0 prints and saves.
+Otherwise it solves on one device. `--config`
 takes a preset (mini, syrip) or the path of
 configs/optim/concat_pose_optimization_{mini,syrip}.py. The data stay
 relative to the working directory (data/mini-rgbd, data/syrip), as in the
@@ -27,10 +33,12 @@ import torch
 
 from zedo_tpu_torch import presets
 from zedo_tpu_torch.data.base import normalize_data
+from zedo_tpu_torch.data.sharding import pad_batch
 from zedo_tpu_torch.data.mini_rgbd import SMIL_TO_H36M, mini_intrinsics, mini_rgbd
 from zedo_tpu_torch.data.syrip import syrip
 from zedo_tpu_torch.models import control_mlp, score_mlp, score_mlp_cond
-from zedo_tpu_torch.run.opt_main import load_config
+from zedo_tpu_torch.parallel.mesh import say
+from zedo_tpu_torch.run.opt_main import add_device_args, cli_mesh, load_config
 from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
@@ -64,7 +72,7 @@ def parse_args(argv=None):
     parser.add_argument("--save", type=str, default=None)
     parser.add_argument("--override", action="append", default=[],
                         help="config override, e.g. --override ZeDO.OIL_iterations=500")
-    parser.add_argument("--device", type=str, default="cuda")
+    add_device_args(parser)
     return parser.parse_args(argv)
 
 
@@ -81,9 +89,12 @@ def get_datasets(config):
 def main(argv=None) -> dict:
     """Run the CLI; returns {poses [N, S, j, 3] on the device, reproj_px
     [S, steps], mpjpe (m), solve_s, ipo_s, oil_s, eval_s} for in-process
-    callers."""
+    callers (on a mesh, mpjpe and eval_s on the first rank only, None on
+    the others)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    mesh = cli_mesh(args)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    log = say(mesh)
     config = apply_overrides(load_config(args.config, CONFIG_FILES), args.override)
     n_joints = config.DATASET.NUM_JOINT
     train_dataset, test_dataset = get_datasets(config)
@@ -96,9 +107,9 @@ def main(argv=None) -> dict:
         model_apply = score_mlp.apply
 
     ckpt_path = os.path.join(args.ckpt_dir, args.ckpt_name)
-    print(f"loading model from {ckpt_path}")
+    log(f"loading model from {ckpt_path}")
     params, step = load_any_checkpoint(ckpt_path, preset.model_cfg, device=dev)
-    print(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
+    log(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
 
     cond2d = np.asarray(test_dataset.db_2d[:, :, :2], np.float32)
     if config.data.dataset == "mini":
@@ -114,13 +125,13 @@ def main(argv=None) -> dict:
     sample_poses = np.asarray(sample_poses, np.float32)
     if len(sample_poses) < args.hypo:
         # the reference reruns the same single cluster for every hypothesis
-        print(f"note: cluster source has {len(sample_poses)} pose(s); "
-              f"tiling to {args.hypo} identical hypotheses")
+        log(f"note: cluster source has {len(sample_poses)} pose(s); "
+            f"tiling to {args.hypo} identical hypotheses")
         sample_poses = np.tile(sample_poses, (-(-args.hypo // len(sample_poses)), 1, 1))
 
     dtype = resolve_dtype(args.dtype, dev)
     if dtype != args.dtype:
-        print(f"--dtype auto -> {dtype} on {dev.type}")
+        log(f"--dtype auto -> {dtype} on {dev.type}")
     if dtype == "bf16":
         params = tree_map(lambda x: x.to(torch.bfloat16), params)
     # the reference logs the reprojection error of every OIL step
@@ -132,35 +143,52 @@ def main(argv=None) -> dict:
 
     # --cond conditions the model on the actual normalized 2D keypoints at
     # every OIL step, the normalization its training uses
-    condition = put(normalize_data(cond2d)) if args.cond else None
+    condition = normalize_data(cond2d) if args.cond else None
     sw = profiling.Stopwatch()
+    n = len(cond2d)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
     with torch.no_grad(), sw.phase("solve"):
-        result = infant.solve_infant(
-            params, model_apply, preset.model_cfg, preset.sde, preset.sampler, zcfg,
-            put(sample_poses[:args.hypo]), put(cond2d), put(k), pelvis_mode=pelvis_mode,
-            refine_t_from=950, generator=torch.Generator(device=dev).manual_seed(args.seed),
-            condition=condition, stopwatch=sw)
+        clusters = put(sample_poses[:args.hypo])
+        if mesh is None:
+            result = infant.solve_infant(
+                params, model_apply, preset.model_cfg, preset.sde, preset.sampler, zcfg,
+                clusters, put(cond2d), put(k), pelvis_mode=pelvis_mode, refine_t_from=950,
+                generator=generator, condition=None if condition is None else put(condition),
+                stopwatch=sw)
+        else:
+            padded, mask = pad_batch({"cond2d": cond2d, "k": k, "condition": condition},
+                                     mesh.shape["data"])
+            result = infant.solve_infant_sharded(
+                mesh, params, model_apply, preset.model_cfg, preset.sde, preset.sampler, zcfg,
+                clusters, padded["cond2d"], padded["k"], pelvis_mode=pelvis_mode,
+                refine_t_from=950, generator=generator, condition=padded["condition"],
+                row_mask=mask, stopwatch=sw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    n, elapsed = len(cond2d), sw.totals["solve"]
-    print(f"solved {n} poses x {args.hypo} hypotheses x {zcfg.oil.iterations} OIL steps on 1 "
-          f"device(s) in {elapsed:.2f}s ({n * args.hypo / elapsed:.1f} poses/s)")
-    poses = result.poses
+    elapsed = sw.totals["solve"]
+    log(f"solved {n} poses x {args.hypo} hypotheses x {zcfg.oil.iterations} OIL steps on "
+        f"{1 if mesh is None else mesh.size} device(s) in {elapsed:.2f}s "
+        f"({n * args.hypo / elapsed:.1f} poses/s)")
+    poses = result.poses[:n]
     reproj = result.reproj_px.cpu().numpy()  # [S, steps]
     n_steps = reproj.shape[1]
     marks = sorted({0, n_steps // 4, n_steps // 2, 3 * n_steps // 4, n_steps - 1})
     trace = "  ".join(f"step {i}: {reproj[:, i].mean():.2f}px" for i in marks)
-    print(f"reprojection error (mean over {reproj.shape[0]} hypothesis(es)): {trace}")
+    log(f"reprojection error (mean over {reproj.shape[0]} hypothesis(es)): {trace}")
     mbl = infant.max_bone_length(poses.reshape(-1, n_joints, JOINT_DIM)).cpu().numpy()
-    print(f"max bone length (final poses): mean {mbl.mean():.4f}m, max {mbl.max():.4f}m")
+    log(f"max bone length (final poses): mean {mbl.mean():.4f}m, max {mbl.max():.4f}m")
+    out = {"poses": poses, "reproj_px": reproj, "mpjpe": None, "eval_s": None,
+           **{f"{name}_s": sw.totals[name] for name in ("solve", "ipo", "oil")}}
+    if mesh is not None and not mesh.is_main:
+        return out
     if args.save:
         np.save(args.save, poses.cpu().numpy())
 
-    print("eval...")
+    log("eval...")
     with sw.phase("eval"):
-        mpjpe = test_dataset.eval_multi(poses, protocol2=False, print_verbose=False)
-    return {"poses": poses, "reproj_px": reproj, "mpjpe": mpjpe,
-            **{f"{name}_s": sw.totals[name] for name in ("solve", "ipo", "oil", "eval")}}
+        out["mpjpe"] = test_dataset.eval_multi(poses, protocol2=False, print_verbose=False)
+    out["eval_s"] = sw.totals["eval"]
+    return out
 
 
 if __name__ == "__main__":

@@ -5,23 +5,29 @@ MINI-RGBD, SyRIP, both, or Human3.6M.
         [--model score|control|cond] [--compute_dtype bf16] [--aug] [--rotflip] \
         [--fine_tune --fine_tune_ckpt adult.pth] [--restore_dir out/checkpoint_0.pth]
 
-Port of zedo_tpu/run/train_pose_mini.py on one device, with the same flags
-plus `--device` (default cuda; `--device cpu` runs on the CPU). `--config`
+Port of zedo_tpu/run/train_pose_mini.py, with the same flags plus
+`--device` (default cuda; `--device cpu` runs on the CPU) and `--backend`.
+`--mesh` takes JAX's grammar over the torchrun world: auto (data-parallel
+over all ranks when there are more than one), off, dp[N] or dp[N],tpM
+(e.g. `torchrun --nproc-per-node 4 -m zedo_tpu_torch.run.train_pose_mini
+--mesh dp2,tp2 ...`): the batch is sharded over the data axis and, with
+tp, the ScoreMLP's hidden dim over the model axis (train.trainer); rank 0
+logs and writes the checkpoints. `--config`
 takes a preset (mini, syrip, h36m) or the path of
 configs/optim/concat_pose_optimization_<name>.py; `--override
 data.dataset=concate` trains on MINI-RGBD and SyRIP together. The data stay
 relative to the working directory (data/mini-rgbd, data/syrip, data/h36m),
 the output under config.OUTPUT_DIR. Checkpoints are .pth files in the
 reference's layout (utils/checkpoint.save_native); `--restore_dir` takes
-one. `--mesh` takes `off` and `auto` (one device); data and tensor
-parallelism wait for the multi-GPU port. JAX's `--prng` chooses between
-JAX's random number generators and has no counterpart here.
+one. JAX's `--prng` chooses between JAX's random number generators and has
+no counterpart here.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import pprint
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,11 +37,13 @@ from zedo_tpu_torch.data.base import normalize_data
 from zedo_tpu_torch.data.concat import ConcatDataset
 from zedo_tpu_torch.models import control_mlp, score_mlp_cond
 from zedo_tpu_torch.models.registry import make_mlp_config
-from zedo_tpu_torch.run.opt_main import load_config
+from zedo_tpu_torch.parallel import collectives
+from zedo_tpu_torch.parallel.mesh import init_from_env, mesh_from_spec
+from zedo_tpu_torch.run.opt_main import add_device_args, load_config
 from zedo_tpu_torch.train import trainer
 from zedo_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device
-from zedo_tpu_torch.utils.generic import create_logger
+from zedo_tpu_torch.utils.generic import create_logger, quiet_logger
 
 CONFIG_FILES = {"h36m": "h36m", "mini": "mini", "syrip": "syrip"}
 
@@ -68,11 +76,13 @@ def parse_args(argv=None):
                              "(combine with --fine_tune to seed the trunk); 'cond' trains "
                              "the conditional prior on the dataset's normalized 2D keypoints")
     parser.add_argument("--mesh", type=str, default="auto",
-                        help="off or auto (one device); dp/tp meshes wait for the "
-                             "multi-GPU port")
+                        help="process mesh over the torchrun ranks: auto (data-parallel over "
+                             "all ranks when >1), off, dp[N], or dp[N],tpM (e.g. dp4,tp2). The "
+                             "batch is sharded over the data axis; with tp the ScoreMLP hidden "
+                             "dim is sharded over the model axis")
     parser.add_argument("--override", action="append", default=[],
                         help="config override, e.g. --override training.batch_size=256")
-    parser.add_argument("--device", type=str, default="cuda")
+    add_device_args(parser)
     return parser.parse_args(argv)
 
 
@@ -119,32 +129,37 @@ def build_eval_dataset(config, args):
     return None
 
 
-def _mesh(spec: str):
-    if spec in ("off", "auto"):
-        return None
-    raise NotImplementedError(
-        f"--mesh {spec}: data and tensor parallelism wait for the multi-GPU port "
-        "(ROADMAP.md Queue 1, item 15); use --mesh off or auto (one device)")
-
-
 def main(argv=None) -> dict:
     """Run the CLI; returns {state, history, eval_history, output_dir} for
     in-process callers."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    init_from_env(args.backend, args.device)
+    mesh = mesh_from_spec(args.mesh, device=args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
     config = apply_overrides(load_config(args.config, CONFIG_FILES), args.override)
-    _mesh(args.mesh)
-    logger, final_output_dir, tb_log_dir = create_logger(config, "train", folder_name=args.name,
-                                                         log_name=args.log_name)
+    if mesh is not None and mesh.size > 1 and not args.log_name:
+        # one output directory for all ranks: the first rank's time stamp
+        args.log_name = collectives.broadcast_object(time.strftime("%Y-%m-%d-%H-%M"), mesh)
+    if main_rank:
+        logger, final_output_dir, tb_log_dir = create_logger(
+            config, "train", folder_name=args.name, log_name=args.log_name)
+    else:
+        logger, final_output_dir, tb_log_dir = quiet_logger(
+            config, folder_name=args.name, log_name=args.log_name)
     logger.info(pprint.pformat(config))
     logger.info(pprint.pformat(vars(args)))
     logger.info(f"training device: {dev}")
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    logger.info(f"training mesh: {mesh.shape}" if mesh is not None
+                else "training mesh: single-device")
+    writer = None
+    if main_rank:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(tb_log_dir)
-    except Exception:  # TensorBoard is optional
-        writer = None
+            writer = SummaryWriter(tb_log_dir)
+        except Exception:  # TensorBoard is optional
+            writer = None
 
     if args.model == "cond" and args.aug:
         raise SystemExit("--model cond is incompatible with --aug: augmentation rows carry "
@@ -190,7 +205,7 @@ def main(argv=None) -> dict:
             config, dataset, test_dataset=build_eval_dataset(config, args),
             output_dir=final_output_dir, model_cfg=model_cfg, trainer_cfg=tcfg,
             fine_tune_params=fine_tune_params, restore_dir=args.restore_dir or None,
-            writer=writer, logger=logger, device=dev, **extra)
+            writer=writer, logger=logger, device=dev, mesh=mesh, **extra)
     finally:
         if writer is not None:
             writer.close()

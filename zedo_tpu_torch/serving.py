@@ -1,11 +1,15 @@
 """Serving API: load once, predict many times.
 
-Port of zedo_tpu/serving.py (single device; multi-GPU serving waits for
-the multi-GPU slice).
+Port of zedo_tpu/serving.py, on one device or on a mesh of ranks.
 
     est = ZeDOEstimator.from_torch_checkpoint(
         "checkpoint_1500.pth", "clusters/h36m_cluster5.npy", dtype="bf16")
     out = est.predict(kp2d, K)   # poses [N, S, 17, 3], best [N], ...
+
+On a mesh (`mesh=`, parallel/mesh.py) every rank calls `predict` with the
+same request (SPMD): each pads it to the bucket, solves its block of the
+rows on its device, ranks and packs them there, and the packed blocks are
+gathered with one device-to-host copy a rank.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from zedo_tpu_torch import presets
 from zedo_tpu_torch.data.sharding import pad_batch, unpad
 from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.camera import project
+from zedo_tpu_torch.parallel import collectives
+from zedo_tpu_torch.parallel.mesh import Mesh, mesh_from_spec
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_torch_checkpoint
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import pipeline
@@ -35,6 +41,11 @@ def _rank_and_pack(poses, trans, kp2d, k):
                       err.float()], dim=1)
 
 
+def _resolve_mesh(mesh, device) -> Optional[Mesh]:
+    """A Mesh, or None, from a Mesh, None or a mesh_from_spec string."""
+    return mesh_from_spec(mesh, device=device) if isinstance(mesh, str) else mesh
+
+
 @dataclasses.dataclass
 class ZeDOEstimator:
     params: dict
@@ -45,18 +56,42 @@ class ZeDOEstimator:
     clusters: np.ndarray  # [S, j, 3]
     device: torch.device
     batch_bucket: int = 256  # pad N up to a multiple
+    # a parallel.mesh.Mesh for multi-GPU serving: the padded batch is
+    # sharded over its 'data' axis (pipeline.solve_sharded's placement).
+    # Also takes 'auto' or a mesh_from_spec string ('off', 'dpN', ...),
+    # resolved on `device`. None = one device
+    mesh: object = None
+
+    def __post_init__(self):
+        # validated on every construction path, not just from_torch_checkpoint
+        self.mesh = _resolve_mesh(self.mesh, self.device)
+        if self.mesh is not None:
+            if "data" not in self.mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a 'data' axis, got {self.mesh.axis_names}")
+            n_data = self.mesh.shape["data"]
+            if self.batch_bucket % n_data:
+                raise ValueError(
+                    f"batch_bucket {self.batch_bucket} must be divisible by "
+                    f"the mesh data-axis size {n_data}")
+            self.mesh.require_member()
 
     @classmethod
     def from_torch_checkpoint(cls, ckpt_path: str, cluster_path: str,
                               preset: Optional[presets.Preset] = None,
                               dtype: str = "bf16", batch_bucket: int = 256,
-                              device="cuda") -> "ZeDOEstimator":
+                              device="cuda", mesh=None) -> "ZeDOEstimator":
         """preset: the serving configuration (default presets.h36m());
         dtype 'bf16' runs the score network in bf16 (the fused CUDA kernel
-        on the card), 'fp32' in full f32."""
+        on the card), 'fp32' in full f32. mesh: a Mesh with a 'data' axis,
+        'auto' (a data mesh over all ranks when there are more than one),
+        a mesh_from_spec string, or None; on a mesh the weights load onto
+        this rank's device (mesh.device, from `device`). The batch bucket
+        must be divisible by the data-axis size."""
         if dtype not in ("bf16", "fp32"):
             raise ValueError(f"dtype must be 'bf16' or 'fp32', got {dtype!r}")
-        dev = resolve_device(device)
+        mesh = _resolve_mesh(mesh, device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         preset = preset or presets.h36m()
         # the raw weights: the reference loads EMA at inference but never applies it
         params = load_torch_checkpoint(ckpt_path, preset.model_cfg, dev)["params"]
@@ -65,7 +100,7 @@ class ZeDOEstimator:
         clusters = np.asarray(convert_cluster_file(cluster_path), np.float32)
         return cls(params=params, model_cfg=preset.model_cfg, sde=preset.sde,
                    sampler=preset.sampler, zcfg=preset.zcfg, clusters=clusters,
-                   device=dev, batch_bucket=batch_bucket)
+                   device=dev, batch_bucket=batch_bucket, mesh=mesh)
 
     def with_schedule(self, oil_iterations: Optional[int],
                       ipo_iterations: Optional[int] = None,
@@ -110,16 +145,24 @@ class ZeDOEstimator:
              "conf": None if confidence is None else np.asarray(confidence, np.float32)},
             self.batch_bucket)
 
-        def put(a):
-            return None if a is None else torch.from_numpy(a).to(self.device)
-
-        kp, kk, conf = put(padded["kp"]), put(padded["k"]), put(padded["conf"])
         clusters = torch.from_numpy(self.clusters).to(self.device)
+        buffers = (padded["kp"], padded["k"], padded["conf"])
+        if self.mesh is None:
+            kp, kk, conf = (None if a is None else torch.from_numpy(a).to(self.device)
+                            for a in buffers)
+        else:
+            # this rank's block of the padded rows, solved, ranked and packed here
+            kp, kk, conf = pipeline.shard_rows(self.mesh, "data", len(mask), *buffers)
+            pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg)
         with torch.no_grad():
             result = pipeline.solve(self.params, self.model_cfg, self.sde, self.sampler,
                                     self.zcfg, clusters, kp, conf, kk)
             packed = _rank_and_pack(result.poses, result.translations, kp, kk)
-        host = unpad(packed.cpu().numpy(), mask)  # the one device-to-host copy
+        if self.mesh is None:
+            host = packed.cpu()  # the one device-to-host copy
+        else:
+            host = collectives.all_gather_to_host(packed, self.mesh, "data")
+        host = unpad(host.numpy(), mask)
         s, j = len(self.clusters), self.model_cfg.n_joints
         poses = host[:, :s * j * 3].reshape(n, s, j, 3)
         trans = host[:, s * j * 3:s * j * 3 + s * 3].reshape(n, s, 1, 3)

@@ -1,5 +1,5 @@
-"""Score-prior training loop on one device (port of zedo_tpu/train/trainer.py,
-the reference's run/train_pose_mini.py).
+"""Score-prior training loop (port of zedo_tpu/train/trainer.py, the
+reference's run/train_pose_mini.py), on one device or on a mesh of ranks.
 
 Each epoch shuffles the in-memory poses with RandomState([seed, epoch]) and
 augments each batch with RandomState([seed, epoch, i]) (numpy, so the same
@@ -11,6 +11,19 @@ samples against the held-out poses (identity-covariance Mahalanobis to
 their mean) and solves a micro zero-shot scene with the EMA weights (IPO +
 OIL through `pipeline.solve`), then writes a checkpoint
 (utils/checkpoint.save_native).
+
+On a mesh (`train_loop(mesh=...)`, `make_sharded_train_step`) each rank
+takes its rows of every batch and the step keeps the global batch's
+semantics, as JAX's GSPMD-partitioned step does: every rank draws the
+global batch's times, noise and dropout masks and keeps its own
+(parallel.draws); the gradients and the loss are averaged over the data
+axis before the clip and Adam, so the replicas stay bit-identical. With a
+model axis the ScoreMLP is tensor-parallel (parallel.tensor_parallel): the
+leaves, their Adam moments and EMA shadows live as this rank's blocks, the
+gradient norm of the clip is the global one, and checkpoints are gathered
+to the full reference layout, so a run saved under one mesh resumes under
+another. Only the mesh's first rank writes checkpoints, samples and
+TensorBoard scalars and logs.
 """
 from __future__ import annotations
 
@@ -30,6 +43,8 @@ from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.nn import tree_to_flat
 from zedo_tpu_torch.ops import metrics as metrics_lib
+from zedo_tpu_torch.parallel import collectives, draws
+from zedo_tpu_torch.parallel import tensor_parallel as tp_lib
 from zedo_tpu_torch.utils import checkpoint as ckpt_lib
 from zedo_tpu_torch.utils.config import resolve_device
 
@@ -136,14 +151,111 @@ def make_train_step(sde, model_apply_raw, model_cfg, optimizer, reduce_mean=Fals
         likelihood_weighting=likelihood_weighting, grad_mask=grad_mask)
 
 
+class MeshSync:
+    """The reductions of a train step on a mesh (losses.get_step_fn's
+    `sync`): the global batch's draws sliced to this rank, the replicated
+    leaves' gradients summed over the model axis (tensor parallelism), every
+    gradient and the loss averaged over the data axis, and under tensor
+    parallelism the global gradient norm."""
+
+    def __init__(self, mesh, data_axis: str = "data", model_axis: str = "model",
+                 rules: Optional[dict] = None, hidden: Optional[int] = None):
+        self.mesh, self.data_axis, self.model_axis = mesh, data_axis, model_axis
+        self.rules, self.hidden = rules, hidden  # rules: {leaf name: tp rule} or None
+
+    def generator(self, gen, batch) -> draws.ShardedGenerator:
+        b, m = batch.shape[0], self.mesh
+        i = m.index(self.data_axis)
+        cols = None
+        if self.rules is not None:
+            w = self.hidden // m.axis_size(self.model_axis)
+            cols = slice(m.index(self.model_axis) * w, (m.index(self.model_axis) + 1) * w)
+        return draws.ShardedGenerator(gen, slice(i * b, (i + 1) * b),
+                                      b * m.axis_size(self.data_axis), cols, self.hidden)
+
+    def _all_reduce(self, tensors: list, axis: str, mean: bool) -> list:
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        flat = (collectives.pmean if mean else collectives.psum)(flat, self.mesh, axis)
+        return [piece.view_as(t).to(t.dtype)
+                for piece, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+    def reduce(self, names, grads: list, loss: torch.Tensor):
+        grads = list(grads)
+        if self.rules is not None:
+            repl = [i for i, n in enumerate(names) if self.rules[n] == "replicated"]
+            for i, g in zip(repl, self._all_reduce([grads[i] for i in repl], self.model_axis,
+                                                   mean=False)):
+                grads[i] = g
+        *grads, loss = self._all_reduce(grads + [loss.detach()], self.data_axis, mean=True)
+        return grads, loss
+
+    def grad_norm(self, names):
+        """None (the gradients are whole and equal on every rank) or the
+        global norm of tensor-parallel shards."""
+        if self.rules is None:
+            return None
+        sharded = [self.rules[n] != "replicated" for n in names]
+
+        def norm(grads):
+            sq = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads]
+            zero = sq[0].new_zeros(())
+            part = sum((s for s, sh in zip(sq, sharded) if sh), zero)
+            whole = sum((s for s, sh in zip(sq, sharded) if not sh), zero)
+            return torch.sqrt(collectives.psum(part, self.mesh, self.model_axis) + whole)
+
+        return norm
+
+
+def make_sharded_train_step(mesh, sde, model_apply_raw, model_cfg, optimizer,
+                            data_axis: str = "data", reduce_mean=False,
+                            compute_dtype: str = "fp32", continuous=True,
+                            likelihood_weighting=False, grad_mask=None, tp_rules=None,
+                            model_axis: str = "model"):
+    """The train step on a mesh: each rank passes its rows of the global
+    batch (`rows(n)` is this rank's slice of a batch of n rows). tp_rules:
+    the flat tensor_parallel rules of a state sharded over `model_axis`
+    (score_mlp.apply only), else None. Returns (step_fn, rows)."""
+    if tp_rules is not None:
+        if model_apply_raw is not score_mlp.apply:
+            raise ValueError("tensor parallelism takes the plain ScoreMLP (score_mlp.apply) "
+                             "only; train adapters with a data-parallel mesh")
+        model_apply_raw = tp_lib.make_apply(mesh, model_axis)
+    sync = MeshSync(mesh, data_axis, model_axis, tp_rules, model_cfg.hidden_dim)
+    step = losses_lib.get_step_fn(
+        sde, _bound_apply(model_apply_raw, model_cfg, compute_dtype), optimizer, train=True,
+        reduce_mean=reduce_mean, continuous=continuous,
+        likelihood_weighting=likelihood_weighting, grad_mask=grad_mask, sync=sync)
+    return step, lambda n: mesh.row_slice(n, data_axis)
+
+
 def step_seed(*keys: int) -> int:
     """A 63-bit seed derived from integer keys (seed, epoch, step)."""
     return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _save(path, epoch, state, model_cfg):
-    ckpt_lib.save_native(path, epoch, state.step, state.params, state.ema,
-                         state.opt_state.state_dict(), model_cfg)
+def _map_adam(opt_state: dict, names: list, fn) -> dict:
+    """An Adam state_dict with each leaf's moments replaced by fn(moment,
+    leaf name); leaf i of the state is names[i]."""
+    state = {i: {k: fn(v, names[i]) if k in ("exp_avg", "exp_avg_sq") else v
+                 for k, v in s.items()} for i, s in opt_state["state"].items()}
+    return {"state": state, "param_groups": opt_state["param_groups"]}
+
+
+def _save(path, epoch, state, model_cfg, mesh=None, rules=None):
+    """A checkpoint of the full state, written by the mesh's first rank (the
+    tensor-parallel blocks gathered first; every rank takes part)."""
+    params, ema, opt_state = state.params, state.ema, state.opt_state.state_dict()
+    if rules is not None:
+        names = [n for n, _ in state.leaves()]
+        params = tp_lib.gather_tree(params, rules, mesh)
+        ema = dataclasses.replace(ema, shadow_params=tp_lib.gather_tree(ema.shadow_params,
+                                                                        rules, mesh))
+        opt_state = _map_adam(opt_state, names,
+                              lambda v, n: tp_lib.gather_leaf(v, rules[n], mesh))
+    if mesh is None or mesh.is_main:
+        ckpt_lib.save_native(path, epoch, state.step, params, ema, opt_state, model_cfg)
+    if mesh is not None:
+        collectives.barrier(mesh)  # the file is whole before any rank reads it
 
 
 def _wants(ds, attr: str) -> bool:
@@ -166,13 +278,19 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
     the trainable leaves; condition_data: optional [N, j, c] conditions
     aligned with db_3d (conditional-prior training). restore_dir: a
     checkpoint of `save_native` to resume from (epoch, step, params, EMA,
-    Adam), skipping the batches of a partly trained epoch."""
+    Adam), skipping the batches of a partly trained epoch.
+    mesh: a parallel.mesh.Mesh with a 'data' axis (and optionally 'model',
+    tensor parallelism of the plain ScoreMLP); the ranks compute on
+    mesh.device (`device` is then unused) and return this rank's state, its
+    blocks of the leaves under tensor parallelism."""
+    main = mesh is None or mesh.is_main
     if mesh is not None:
-        raise NotImplementedError(
-            "train_loop(mesh=...): the sharded train step waits for the multi-GPU port "
-            "(ROADMAP.md Queue 1, item 15)")
-    dev = resolve_device(device)
-    log = logger.info if logger else print
+        mesh.require_member()
+        if "data" not in mesh.shape:
+            raise ValueError(f"training mesh needs a 'data' axis, got {mesh.axis_names}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    log = (logger.info if logger else print) if main else (lambda *a, **k: None)
+    writer = writer if main else None
     os.makedirs(output_dir, exist_ok=True)
 
     if model_cfg is None:
@@ -192,30 +310,47 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
         log(f"freeze: {len(flags) - sum(map(bool, flags))}/{len(flags)} param leaves frozen "
             f"({sum(map(bool, flags))} trainable)")
 
+    rules = None
+    if mesh is not None and mesh.axis_size("model") > 1:
+        rules = tp_lib.check(params, model_cfg, mesh)
+        log(f"tensor parallelism: the ScoreMLP's hidden dim over {mesh.shape['model']} ranks")
+
+    def place(tree):
+        return tp_lib.shard_tree(tree, rules, mesh) if rules is not None else tree
+
     optimizer = losses_lib.get_optimizer(config)
-    state = losses_lib.init_train_state(params, optimizer, config.model.ema_rate)
+    state = losses_lib.init_train_state(place(params), optimizer, config.model.ema_rate)
 
     start_epoch = 0
     if restore_dir:
         restored = ckpt_lib.restore_native(restore_dir, dev)
-        state = losses_lib.init_train_state(restored["params"], optimizer,
+        state = losses_lib.init_train_state(place(restored["params"]), optimizer,
                                             config.model.ema_rate)
         state.step = restored["step"]
-        state.opt_state.load_state_dict(restored["opt_state"])
+        opt_state = restored["opt_state"]
+        if rules is not None:
+            names = [n for n, _ in state.leaves()]
+            opt_state = _map_adam(opt_state, names,
+                                  lambda v, n: tp_lib.shard_leaf(v, rules[n], mesh))
+        state.opt_state.load_state_dict(opt_state)
         ema = restored["ema"]
         state.ema = ema_lib.EMAState(decay=ema["decay"], num_updates=ema["num_updates"],
-                                     shadow_params=ema["shadow_params"])
+                                     shadow_params=place(ema["shadow_params"]))
         start_epoch = restored["epoch"]
         log(f"resumed from {restore_dir} at epoch {start_epoch}, step {state.step}")
 
     sde = build_sde(config.training.sde, beta_min=config.model.beta_min,
                     beta_max=config.model.beta_max, sigma_min=config.model.sigma_min,
                     sigma_max=config.model.sigma_max, n=config.model.num_scales)
-    train_step = make_train_step(
-        sde, model_apply_raw, model_cfg, optimizer, reduce_mean=config.training.reduce_mean,
-        continuous=config.training.continuous,
-        likelihood_weighting=config.training.likelihood_weighting,
-        compute_dtype=trainer_cfg.compute_dtype, grad_mask=grad_mask)
+    step_kw = dict(reduce_mean=config.training.reduce_mean,
+                   continuous=config.training.continuous,
+                   likelihood_weighting=config.training.likelihood_weighting,
+                   compute_dtype=trainer_cfg.compute_dtype, grad_mask=grad_mask)
+    if mesh is not None:
+        train_step, rows = make_sharded_train_step(mesh, sde, model_apply_raw, model_cfg,
+                                                   optimizer, tp_rules=rules, **step_kw)
+    else:
+        train_step = make_train_step(sde, model_apply_raw, model_cfg, optimizer, **step_kw)
 
     # eval-time sampler: the full PC loop, without the probability flow
     sampling = config.sampling
@@ -250,6 +385,18 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
                     "the flip aug is applied (jointly to pose and condition)")
             augment = None
     batch_size = min(config.training.batch_size, n)
+    if mesh is not None:
+        # each rank takes an equal block of rows: keep the batch divisible
+        # by the data-axis size (round down, never below one row a rank)
+        n_data = mesh.shape["data"]
+        if n < n_data:
+            raise ValueError(f"dataset has {n} rows < data-axis size {n_data}; "
+                             f"use --mesh off or a smaller dp")
+        rounded = max(n_data, (batch_size // n_data) * n_data)
+        if rounded != batch_size:
+            log(f"batch_size {batch_size} -> {rounded} (multiple of data-axis size {n_data})")
+        batch_size = rounded
+    own = rows(batch_size) if mesh is not None else slice(None)
     steps_per_epoch = max(1, n // batch_size)
 
     # a preemption checkpoint records the current epoch and the global step:
@@ -300,7 +447,7 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
                 continue
             gen.manual_seed(step_seed(trainer_cfg.seed, epoch, i))
             if data_dev is not None:
-                idx = perm_dev[i * batch_size:(i + 1) * batch_size]
+                idx = perm_dev[i * batch_size:(i + 1) * batch_size][own]
                 batch = data_dev[idx]
                 cond = cond_dev[idx] if cond_dev is not None else None
             else:
@@ -312,14 +459,14 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
                     batch_np = augment(batch_np, aug_rng)
                 elif augment_cond is not None:
                     batch_np, cond_np = augment_cond(batch_np, cond_np, aug_rng)
-                batch = upload(batch_np)
-                cond = upload(cond_np) if cond_np is not None else None
+                batch = upload(batch_np[own])
+                cond = upload(cond_np[own]) if cond_np is not None else None
             state, loss = train_step(state, gen, batch, cond, None)
             step_losses.append((i, loss))
             if (trainer_cfg.preemption_ckpt_freq
                     and state.step % trainer_cfg.preemption_ckpt_freq == 0):
                 _save(os.path.join(output_dir, "checkpoint_preempt.pth"), epoch, state,
-                      model_cfg)
+                      model_cfg, mesh, rules)
         meter = AverageMeter()
         if step_losses:
             values = torch.stack([loss for _, loss in step_losses]).cpu().tolist()
@@ -335,7 +482,10 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
         history.append(meter.avg)
 
         if epoch % trainer_cfg.eval_freq == 0:
+            # every rank samples and scores the same full EMA weights
             ema_params = ema_lib.params_of(state.ema)
+            if rules is not None:
+                ema_params = tp_lib.gather_tree(ema_params, rules, mesh)
 
             def model_fn(x, labels, cond, msk):
                 return model_apply_raw(ema_params, model_cfg, x, labels, cond, msk)
@@ -347,7 +497,8 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
                     score_fn, gen, (min(config.eval.batch_size, n), model_cfg.n_joints,
                                     model_cfg.joint_dim))
             results = results.cpu().numpy() / trainer_cfg.data_scale
-            np.save(os.path.join(output_dir, f"results_{epoch}.npy"), results)
+            if main:
+                np.save(os.path.join(output_dir, f"results_{epoch}.npy"), results)
 
             if eval_gt is not None:
                 # identity-covariance Mahalanobis: squared distance to the
@@ -375,7 +526,7 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
 
             # epoch complete: a resume starts at the next one
             _save(os.path.join(output_dir, f"checkpoint_{epoch}.pth"), epoch + 1, state,
-                  model_cfg)
+                  model_cfg, mesh, rules)
             log(f"Save checkpoint to {output_dir}")
 
     return state, history, eval_history

@@ -13,9 +13,9 @@ Deltas from the adult pipeline:
   * confidences unused (conf=None).
 
 As in `pipeline.solve`, the S hypotheses are folded into the batch (rows
-hypothesis-major, s*N + n), so IPO and OIL run once on S*N rows. The
-JAX package's multi-device `solve_infant_sharded` waits for the multi-GPU
-slice (ROADMAP.md Queue 1, item 15).
+hypothesis-major, s*N + n), so IPO and OIL run once on S*N rows.
+`solve_infant_sharded` runs it on a mesh of ranks, as
+`pipeline.solve_sharded` runs the adult solve.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.linalg import inv_intrinsics
 from zedo_tpu_torch.zeroshot.ipo import init_translation, run_ipo
 from zedo_tpu_torch.zeroshot.oil import OILResult, run_oil
+from zedo_tpu_torch.zeroshot import pipeline
 from zedo_tpu_torch.zeroshot.pipeline import SolveResult, ZeDOConfig, _phase, fold, unfold_result
 
 # skeleton of the max-bone-length diagnostic
@@ -156,3 +157,27 @@ def solve_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
                                generator, reproj_weight, condition, stopwatch)
     return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
 
+
+
+def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
+                         cluster_poses, cond2d, k, pelvis_mode="joint0", refine_t_from=950,
+                         generator=None, condition=None, data_axis: str = "data",
+                         row_mask=None, stopwatch=None) -> SolveResult:
+    """The infant solve on a mesh (mirror of pipeline.solve_sharded, which
+    see): every rank passes the same global inputs, solves its block of the
+    N frames with `solve_infant` and gets the global result. `condition`
+    [N, j, c] is sharded with the batch; the adapters take the generic path
+    on each rank, with `generator` seeded alike on every rank. Under
+    OILConfig.track_reproj the [S, steps] trace is averaged over the data
+    axis (pad N with data.sharding.pad_batch and pass its mask as
+    `row_mask`)."""
+    weight = pipeline._pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
+    cond2d, k, condition, weight = pipeline.shard_rows(mesh, data_axis, len(cond2d), cond2d,
+                                                       k, condition, weight)
+    if model_apply is score_mlp.apply:
+        pipeline.prebuild_kernel(mesh, params, model_cfg)
+    res = solve_infant(params, model_apply, model_cfg, sde, sampler, cfg, cluster_poses,
+                       cond2d, k, pelvis_mode=pelvis_mode, refine_t_from=refine_t_from,
+                       generator=generator, reproj_weight=weight, condition=condition,
+                       stopwatch=stopwatch)
+    return pipeline.gather_result(pipeline.reduce_trace(res, mesh, data_axis), mesh, data_axis)

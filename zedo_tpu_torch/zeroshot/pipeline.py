@@ -5,6 +5,11 @@ hypothesis's program over S; here the S hypotheses are folded into the
 batch (rows ordered hypothesis-major, s*N + n), so IPO and OIL run once on
 S*N rows and the score network sees all of them in one launch per step.
 IPO keeps each hypothesis's own mean loss (zeroshot/ipo.py).
+
+`solve_sharded` runs the solve on a mesh of ranks (parallel/mesh.py), one
+process per GPU: each rank solves its contiguous block of the N poses (JAX's
+P("data") placement) with `solve`, so its rows are those of `solve` on that
+block alone, and the result is gathered to every rank by one all-gather.
 """
 from __future__ import annotations
 
@@ -12,11 +17,13 @@ import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SDE
 from zedo_tpu_torch.models import score_mlp
+from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.zeroshot.ipo import IPOConfig, run_ipo
 from zedo_tpu_torch.zeroshot.oil import OILConfig, OILResult, run_oil
 
@@ -141,3 +148,86 @@ def unfold_result(res: OILResult, s: int, track_reproj: bool) -> SolveResult:
         translations=res.translation.reshape(s, n, 1, 3).transpose(0, 1),
         reproj_px=res.reproj_px if track_reproj else None,
     )
+
+
+def _pad_aware_reproj_weight(mesh, data_axis: str, cfg: ZeDOConfig, row_mask):
+    """[N] per-row trace weights from pad_batch's real-row mask, or None for
+    uniform: mask * D / n_real, so that after each rank's weighted sum and
+    the mean over the D ranks of the data axis the trace is the mean over
+    the real rows only."""
+    if not cfg.oil.track_reproj or row_mask is None:
+        return None
+    m = np.asarray(row_mask, np.float32)
+    n_real = float(m.sum())
+    if n_real == 0:
+        raise ValueError("row_mask marks no real rows")
+    return m * np.float32(mesh.axis_size(data_axis) / n_real)
+
+
+def shard_rows(mesh, data_axis: str, n: int, *arrays):
+    """This rank's block of rows of each global [N, ...] array (a tensor or
+    numpy; None stays None) as a tensor on mesh.device."""
+    rows = mesh.row_slice(n, data_axis)
+
+    def put(a):
+        if a is None:
+            return None
+        return torch.as_tensor(a[rows]).to(mesh.device)
+
+    return [put(a) for a in arrays]
+
+
+def prebuild_kernel(mesh, params, model_cfg) -> None:
+    """Build the score kernel on the mesh's first rank before the others load
+    it, where the OIL loop will launch it."""
+    from zedo_tpu_torch.zeroshot.oil import _kernel_eligible
+
+    if mesh.device.type == "cuda" and _kernel_eligible(params, model_cfg):
+        from zedo_tpu_torch.ops.kernels import build
+
+        collectives.main_first(mesh, lambda: build.build(("score_mlp",)))
+
+
+def reduce_trace(res: SolveResult, mesh, data_axis: str) -> SolveResult:
+    """The [S, steps] trace of each rank's rows averaged over the data axis:
+    the solve's one collective besides the final gather."""
+    if res.reproj_px is None:
+        return res
+    return res._replace(reproj_px=collectives.pmean(res.reproj_px, mesh, data_axis))
+
+
+def gather_result(res: SolveResult, mesh, data_axis: str) -> SolveResult:
+    """Each rank's [n, S, ...] poses and translations gathered to the
+    global [N, S, ...] on every rank, in one all-gather."""
+    n, s, j = res.poses.shape[:3]
+    packed = torch.cat([res.poses.reshape(n, s, -1), res.translations.reshape(n, s, -1)], -1)
+    full = collectives.all_gather(packed, mesh, data_axis)
+    return res._replace(poses=full[..., :j * 3].reshape(-1, s, j, 3),
+                        translations=full[..., j * 3:].reshape(-1, s, 1, 3))
+
+
+def solve_sharded(mesh, params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
+                  sampler: PCSampler, cfg: ZeDOConfig, cluster_poses, cond2d, conf, k,
+                  model_apply=None, generator=None, data_axis: str = "data", row_mask=None,
+                  stopwatch=None) -> SolveResult:
+    """The solve on a mesh: every rank passes the same global inputs (SPMD),
+    solves its block of the N poses over `data_axis` with `solve` (weights
+    and cluster poses replicated, the kernel on its own device), and gets
+    the global [N, S, j, 3] result; ranks on other axes solve the same
+    block. No collective runs inside the solve except, under
+    OILConfig.track_reproj, the mean of the [S, steps] trace over the data
+    axis (IPO's loss stays a mean over each rank's own rows, as in JAX's
+    shard_map). generator: the generic path's noise, seeded alike on every
+    rank, which draws for its own rows.
+
+    N must be divisible by the data-axis size: pad with
+    data.sharding.pad_batch and pass its mask as `row_mask`, so that the
+    trace averages over the real rows only (the poses of the pad rows are
+    dropped by sharding.unpad)."""
+    weight = _pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
+    cond2d, conf, k, weight = shard_rows(mesh, data_axis, len(cond2d), cond2d, conf, k, weight)
+    prebuild_kernel(mesh, params, model_cfg)
+    res = solve(params, model_cfg, sde, sampler, cfg, cluster_poses, cond2d, conf, k,
+                model_apply=model_apply, stopwatch=stopwatch, generator=generator,
+                reproj_weight=weight)
+    return gather_result(reduce_trace(res, mesh, data_axis), mesh, data_axis)
