@@ -4,8 +4,8 @@ parallel.tensor_parallel, run.train_pose_mini --mesh) against the JAX
 package's sharded train step on a 2-device mesh and against the port's own
 single-device step.
 
-One two-rank run (a timeout of 120 s) computes every port result; the tests
-read its files. Tolerances: dp2 against JAX's step with the same injected
+One two-rank run (a timeout of 120 s) computes the port's results for all
+but the last test, which runs four ranks on a dp2,tp2 mesh (120 s). Tolerances: dp2 against JAX's step with the same injected
 (t, z) draws as tests/test_torch_train.py holds the single-device step
 (loss 2e-5 relative, parameters 1e-4 + 1e-3 relative), the gradients 1e-4
 of their largest; the tensor-parallel forward 2e-5 absolute against the
@@ -295,3 +295,57 @@ def test_train_cli_mesh_dp2_matches_mesh_off(run):
     out = run[3][0]
     assert len(out["cli_dp_hist"]) == 2 and np.isfinite(out["cli_dp_hist"]).all()
     np.testing.assert_allclose(out["cli_dp_hist"], out["cli_off_hist"], rtol=1e-5)
+
+
+CHILD_DP2_TP2 = r"""
+import sys
+sys.modules["torch.utils.tensorboard"] = None
+import numpy as np
+import torch
+import torch.distributed as dist
+from zedo_tpu_torch.parallel import mesh as mesh_lib
+mesh_lib.init_distributed(device="cpu")
+from zedo_tpu_torch import presets
+from zedo_tpu_torch.models import score_mlp
+from zedo_tpu_torch.parallel import tensor_parallel as tp_lib
+from zedo_tpu_torch.train import trainer
+
+root = sys.argv[1]
+config = presets.optim_config("mini")
+config.training.batch_size, config.model.num_scales, config.eval.batch_size = 16, 20, 16
+class FakeDS:
+    db_3d = np.random.RandomState(0).randn(64, 17, 3).astype(np.float32) * 0.1
+mcfg = score_mlp.ScoreMLPConfig(hidden_dim=64, embed_dim=32, n_blocks=1, num_scales=20)
+mesh = mesh_lib.mesh_from_spec("dp2,tp2", device="cpu")
+assert mesh.shape == {"data": 2, "model": 2}
+tcfg = trainer.TrainerConfig(n_epochs=2, eval_freq=100, seed=0)
+state, hist, _ = trainer.train_loop(config, FakeDS(), output_dir=f"{root}/mesh", model_cfg=mcfg,
+                                    device="cpu", mesh=mesh, trainer_cfg=tcfg)
+rules = tp_lib.check(score_mlp.init_params(torch.Generator(), mcfg, device="cpu"), mcfg, mesh)
+w = tp_lib.gather_tree(state.params, rules, mesh)["pre_dense"]["weight"].detach().numpy()
+out = {"hist": np.array(hist), "w": w}
+if dist.get_rank() == 0:
+    single, single_hist, _ = trainer.train_loop(config, FakeDS(), output_dir=f"{root}/single",
+                                                model_cfg=mcfg, device="cpu", trainer_cfg=tcfg)
+    out["single_hist"] = np.array(single_hist)
+    out["single_w"] = single.params["pre_dense"]["weight"].detach().numpy()
+np.savez(f"{root}/out{dist.get_rank()}.npz", **out)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_train_loop_on_dp2_tp2_matches_one_device(tmp_path):
+    """Four Gloo ranks, a 2 x 2 mesh: each rank's rows of the global batch
+    and its channels of the model; the replicated leaves' gradients summed
+    over the model axis, then every gradient averaged over the data axis.
+    The epoch losses and weights of one device (1e-5 relative; 1e-4 + 1e-3
+    relative), the same on all four ranks."""
+    mpc.run_ranks(["-c", CHILD_DP2_TP2, str(tmp_path)], 4, timeout=120,
+                  env={"OMP_NUM_THREADS": "1"})
+    outs = [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(4)]
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out["hist"], outs[0]["hist"])
+        np.testing.assert_array_equal(out["w"], outs[0]["w"])
+    np.testing.assert_allclose(outs[0]["hist"], outs[0]["single_hist"], rtol=1e-5)
+    np.testing.assert_allclose(outs[0]["w"], outs[0]["single_w"], atol=1e-4, rtol=1e-3)

@@ -9,6 +9,7 @@ a second one (ops/kernels/score_kernel_split.py, csrc/score_mlp_split.cu),
 run by tools/bench_kernel.py --split. The batch CLIs (run/opt_main.py,
 run/inference.py) read a dataset (data/), solve it and score it with
 MPJPE and PA-MPJPE on the card (data/evaluation.py, ops/procrustes.py).
-Entry points run on `cuda` unless the caller passes `device="cpu"`. The
+On several GPUs (parallel/) the solves, the serving estimator and the
+train step run one process per GPU under torch.distributed. Entry points run on `cuda` unless the caller passes `device="cpu"`. The
 package imports torch and numpy, never jax.
 """
