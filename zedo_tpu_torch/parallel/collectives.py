@@ -8,9 +8,9 @@ JAX mesh allows.
 
 Transport, by backend, decided before the call: NCCL takes CUDA tensors
 only, so a CPU tensor on an NCCL group raises. Gloo takes CUDA tensors for
-every collective used here (all_reduce, broadcast, all_gather: checked on
-the card machine's PyTorch 2.11 by two ranks sharing one card, PERF.md),
-so none is staged through host memory by this module.
+every collective used here (all_reduce, broadcast, all_gather: checked
+with PyTorch 2.11 and CUDA 12.8 by two ranks sharing an H100, PERF.md), so
+none is staged through host memory by this module.
 """
 from __future__ import annotations
 
