@@ -20,8 +20,10 @@ import jax.numpy as jnp
 import ml_collections
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh as JMesh
 
+import chip_smoke
 from zedo_tpu.diffusion import losses as jlosses
 from zedo_tpu.diffusion import sde as jsde
 from zedo_tpu.models import score_mlp as jsm
@@ -48,10 +50,11 @@ from zedo_tpu_torch.diffusion import losses
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.nn import tree_to_flat
-from zedo_tpu_torch.parallel import collectives, draws
+from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel import tensor_parallel as tp_lib
 from zedo_tpu_torch.run import train_pose_mini
 from zedo_tpu_torch.train import trainer
+from zedo_tpu_torch.utils import rng
 from zedo_tpu_torch.utils.checkpoint import params_from_numpy, restore_native
 
 root = sys.argv[1]
@@ -74,12 +77,12 @@ def flat(tree):
     return {k: v.detach().numpy() for k, v in tree_to_flat(tree).items()}
 
 # 1. dp2, one step, the draws of the global batch injected (as into JAX's)
-raw_orig = draws._raw
+raw_orig = rng._raw
 def injected(kind, gen, shape, dtype, device, high=None):
     a = {"rand": inp["u"], "randn": inp["z"]}[kind]
     assert tuple(shape) == a.shape, (kind, shape)
     return torch.from_numpy(a)
-draws._raw = injected
+rng._raw = injected
 cfg = score_mlp.ScoreMLPConfig(hidden_dim=128, embed_dim=64, dropout=0.0)
 params = params_from_numpy(inp["params"], device="cpu")
 optimizer = losses.get_optimizer(conf)
@@ -92,7 +95,7 @@ names = [n for n, _ in state.leaves()]
 out["dp_loss"] = loss.item()
 out.update({"dp_grad/" + n: g.numpy() for n, g in zip(names, grads[-1])})
 out.update({"dp_param/" + n: v for n, v in flat(state.params).items()})
-draws._raw = raw_orig
+rng._raw = raw_orig
 
 # 2. dp1,tp2: the forward, and one step with dropout, against one device
 cfg = score_mlp.ScoreMLPConfig(hidden_dim=128, embed_dim=64, dropout=0.25)
@@ -119,14 +122,27 @@ for n, g, s in zip(names, grads[-1], single_grads):
 for n, v in tree_to_flat(tp_lib.gather_tree(sharded.params, rules, tp2)).items():
     out["tp_param/" + n] = v.detach().numpy()
     out["tp_single_param/" + n] = tree_to_flat(single.params)[n].detach().numpy()
+    out["tp_init/" + n] = tree_to_flat(full)[n].detach().numpy()
+# the same step with the replicated leaves' gradients left unsummed over the
+# model axis: a fault chip_smoke's training check has to reject
+def unsummed(self, names, grads, loss):
+    *grads, loss = self._all_reduce(list(grads) + [loss.detach()], self.data_axis, mean=True)
+    return grads, loss
+reduce_orig, trainer.MeshSync.reduce = trainer.MeshSync.reduce, unsummed
+faulty = losses.init_train_state(tp_lib.shard_tree(full, rules, tp2), optimizer, 0.9999)
+faulty, _ = step(faulty, torch.Generator().manual_seed(3), batch[rows(B)])
+trainer.MeshSync.reduce = reduce_orig
+for n, v in tree_to_flat(tp_lib.gather_tree(faulty.params, rules, tp2)).items():
+    out["unsummed_param/" + n] = v.detach().numpy()
 
 # 3. the training loop on one device, dp2 and dp1,tp2, and resumes
 config = presets.optim_config("mini")
 config.training.batch_size, config.model.num_scales, config.eval.batch_size = 16, 20, 16
+config.optim.warmup = 0  # lr 2e-4 from the first step, so the weights move
 class FakeDS:
     db_3d = np.random.RandomState(0).randn(64, 17, 3).astype(np.float32) * 0.1
     db_2d = np.zeros((64, 17, 2), np.float32)
-mcfg = score_mlp.ScoreMLPConfig(hidden_dim=64, embed_dim=32, n_blocks=1, num_scales=20)
+mcfg = score_mlp.ScoreMLPConfig(hidden_dim=128, embed_dim=64, n_blocks=1, num_scales=20)
 
 def loop(mesh, tag, epochs, eval_freq=100, restore=None):
     state, hist, _ = trainer.train_loop(
@@ -161,9 +177,9 @@ if rank == 0:
     chip_smoke.write_mini_workspace(".", np.random.RandomState(0), 16, n_train=96)
 collectives.barrier(dp2)
 cli = ["--config", "mini", "--device", "cpu", "--epochs", "2", "--override", "OUTPUT_DIR=out",
-       "--override", "model.hidden_dim=64", "--override", "model.embed_dim=32",
+       "--override", "model.hidden_dim=128", "--override", "model.embed_dim=64",
        "--override", "training.batch_size=32", "--override", "eval.batch_size=16",
-       "--override", "model.num_scales=20"]
+       "--override", "model.num_scales=20", "--override", "optim.warmup=0"]
 res = train_pose_mini.main(cli + ["--mesh", "dp2", "--log_name", "dp"])
 out["cli_dp_hist"] = np.array(res["history"])
 if rank == 0:
@@ -268,6 +284,24 @@ def test_tp_step_matches_one_device(run):
             np.testing.assert_array_equal(out[key], outs[1][key], err_msg=key)
 
 
+def test_smoke_update_check_rejects_unsummed_tp_gradients(run):
+    """chip_smoke's training check on the card (each leaf's update from the
+    start against one device's, in L2 norm) passes the dp1,tp2 step and
+    rejects the same step with the replicated leaves' gradients left
+    unsummed over the model axis, and an unchanged state."""
+    out = run[3][0]
+
+    def leaves(prefix):
+        return {n: torch.from_numpy(v) for n, v in _pick(out, prefix).items()}
+
+    init, want = leaves("tp_init/"), leaves("tp_single_param/")
+    tol = chip_smoke.TRAIN_UPDATE_RTOL
+    for params, ok in ((leaves("tp_param/"), True), (leaves("unsummed_param/"), False),
+                       (init, False)):
+        worst = max(chip_smoke.train_update_errors(init, params, want).values())
+        assert (worst <= tol) == ok, worst
+
+
 @pytest.mark.parametrize("tag", ["dp", "tp"])
 def test_train_loop_on_a_mesh_matches_one_device(run, tag):
     """train_loop(mesh=...) (dropout 0.25, eval epoch 0): the epoch losses
@@ -288,7 +322,7 @@ def test_resume_under_a_mesh(run):
     np.testing.assert_array_equal(out["loop_resumed_dp_hist"], out["loop_full_hist"][3:])
     np.testing.assert_allclose(out["loop_resumed_tp_hist"], out["loop_full_hist"][3:], rtol=1e-5)
     np.testing.assert_allclose(out["loop_resumed_tp_w"], out["loop_full_w"], atol=1e-4, rtol=1e-3)
-    assert tuple(out["tp_ckpt_shape"]) == (64, 64)
+    assert tuple(out["tp_ckpt_shape"]) == (128, 128)
 
 
 def test_train_cli_mesh_dp2_matches_mesh_off(run):
@@ -313,9 +347,10 @@ from zedo_tpu_torch.train import trainer
 root = sys.argv[1]
 config = presets.optim_config("mini")
 config.training.batch_size, config.model.num_scales, config.eval.batch_size = 16, 20, 16
+config.optim.warmup = 0  # lr 2e-4 from the first step, so the weights move
 class FakeDS:
     db_3d = np.random.RandomState(0).randn(64, 17, 3).astype(np.float32) * 0.1
-mcfg = score_mlp.ScoreMLPConfig(hidden_dim=64, embed_dim=32, n_blocks=1, num_scales=20)
+mcfg = score_mlp.ScoreMLPConfig(hidden_dim=128, embed_dim=64, n_blocks=1, num_scales=20)
 mesh = mesh_lib.mesh_from_spec("dp2,tp2", device="cpu")
 assert mesh.shape == {"data": 2, "model": 2}
 tcfg = trainer.TrainerConfig(n_epochs=2, eval_freq=100, seed=0)

@@ -24,18 +24,18 @@ from zedo_tpu_torch.diffusion import ema as ema_lib
 from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import SDE, VESDE, VPSDE, _bcast, _randn
 from zedo_tpu_torch.models.nn import tree_map, tree_to_flat
-from zedo_tpu_torch.parallel import draws
+from zedo_tpu_torch.utils import rng
 
 # model_apply(params, x, labels, condition, mask, train=False, generator=None)
 ModelApply = Callable[..., torch.Tensor]
 
 
 def _uniform(gen, n: int, like: torch.Tensor) -> torch.Tensor:
-    return draws.rand(gen, (n,), dtype=like.dtype, device=like.device)
+    return rng.rand(gen, (n,), dtype=like.dtype, device=like.device)
 
 
 def _randint(gen, high: int, n: int, like: torch.Tensor) -> torch.Tensor:
-    return draws.randint(gen, high, (n,), device=like.device)
+    return rng.randint(gen, high, (n,), device=like.device)
 
 
 def lr_schedule(config) -> Callable[[int], float]:

@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from zedo_tpu_torch.parallel import draws
+from zedo_tpu_torch.utils import rng
 
 ScoreFn = Callable[..., torch.Tensor]  # (x, t, condition, mask) -> score
 
@@ -31,8 +31,8 @@ def _linspace(lo: float, hi: float, n: int, like: torch.Tensor) -> torch.Tensor:
 
 def _randn(gen, shape, like: torch.Tensor) -> torch.Tensor:
     """N(0, 1) of `shape` from `gen` (a torch.Generator, or a
-    parallel.draws.ShardedGenerator on a mesh)."""
-    return draws.randn(gen, shape, dtype=like.dtype, device=like.device)
+    utils.rng.ShardedGenerator on a mesh)."""
+    return rng.randn(gen, shape, dtype=like.dtype, device=like.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from zedo_tpu_torch.parallel import draws
+from zedo_tpu_torch.utils import rng
 
 Params = dict
 
@@ -105,10 +105,10 @@ def tree_replace(tree: Params, flat: dict, prefix: str = "") -> Params:
 def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
     """Inverted dropout (torch semantics) of a hidden activation [..., C]
     with its keep mask drawn from `generator` (a torch.Generator, or a
-    parallel.draws.ShardedGenerator on a mesh); the identity when
+    utils.rng.ShardedGenerator on a mesh); the identity when
     train=False or rate == 0."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = draws.rand(generator, x.shape, device=x.device, channels=True) < keep
+    mask = rng.rand(generator, x.shape, device=x.device, channels=True) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -136,15 +136,29 @@ def time_embedding(params: Params, cfg: ScoreMLPConfig,
     return nn.silu(nn.linear(params["shared_time_embed"]["0"], temb))
 
 
+def _identity(h: torch.Tensor) -> torch.Tensor:
+    return h
+
+
+def _add_bias(product: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return product + bias
+
+
 def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
                     temb: torch.Tensor, *, used_sigmas: Optional[torch.Tensor] = None,
                     train: bool = False, generator: Optional[torch.Generator] = None,
-                    intermediates: Optional[dict] = None) -> torch.Tensor:
+                    intermediates: Optional[dict] = None,
+                    gather: Callable = _identity, reduce: Callable = _add_bias) -> torch.Tensor:
     """Trunk forward given a precomputed shared time embedding.
 
     batch: [B, j, d]; temb: [B, embed] or [embed] (broadcast over batch).
     train: dropout after each SiLU, masks from `generator`.
-    intermediates: optional dict filled with named per-layer activations."""
+    intermediates: optional dict filled with named per-layer activations.
+    gather, reduce: the hooks of a model whose hidden channels are sharded
+    (parallel.tensor_parallel): `gather(h)` gives a residual layer its whole
+    input from this rank's channels, `reduce(product, bias)` post_dense's
+    output from this rank's partial product. GroupNorm takes the channels it
+    is given in groups of hidden_dim / group_norm_groups."""
     bs = batch.shape[0]
     x = batch.reshape(bs, -1)
     if temb.dim() == 1:
@@ -157,7 +171,7 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
         if intermediates is not None:
             intermediates[name] = v
 
-    g = cfg.group_norm_groups
+    g = params["pre_gnorm"]["weight"].shape[0] * cfg.group_norm_groups // cfg.hidden_dim
     h = nn.linear(params["pre_dense"], x)
     h = h + nn.linear(params["pre_dense_t"], temb)
     h = nn.group_norm(params["pre_gnorm"], h, g)
@@ -166,13 +180,13 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
 
     for idx in range(cfg.n_blocks):
         b = f"b{idx + 1}"
-        h1 = nn.linear(params[f"{b}_dense1"], h)
+        h1 = nn.linear(params[f"{b}_dense1"], gather(h))
         h1 = h1 + nn.linear(params[f"{b}_dense1_t"], temb)
         h1 = nn.group_norm(params[f"{b}_gnorm1"], h1, g)
         rec(f"{b}_gnorm1", h1)
         h1 = drop(nn.silu(h1))
 
-        h2 = nn.linear(params[f"{b}_dense2"], h1)
+        h2 = nn.linear(params[f"{b}_dense2"], gather(h1))
         h2 = h2 + nn.linear(params[f"{b}_dense2_t"], temb)
         h2 = nn.group_norm(params[f"{b}_gnorm2"], h2, g)
         rec(f"{b}_gnorm2", h2)
@@ -180,7 +194,10 @@ def apply_with_temb(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
 
         h = h + h2
 
-    res = nn.linear(params["post_dense"], h).reshape(bs, cfg.n_joints, -1)
+    post = params["post_dense"]
+    dt = torch.promote_types(h.dtype, post["weight"].dtype)
+    res = reduce(h.to(dt) @ post["weight"].to(dt).T, post["bias"].to(dt))
+    res = res.reshape(bs, cfg.n_joints, -1)
     if cfg.scale_by_sigma:
         res = res / used_sigmas.reshape(bs, 1, 1)
     return res
@@ -201,13 +218,16 @@ def used_sigmas(params: Params, cfg: ScoreMLPConfig, t_labels: torch.Tensor):
 def apply(params: Params, cfg: ScoreMLPConfig, batch: torch.Tensor,
           t_labels: torch.Tensor, condition=None, mask=None, *, train: bool = False,
           generator: Optional[torch.Generator] = None,
-          intermediates: Optional[dict] = None) -> torch.Tensor:
+          intermediates: Optional[dict] = None, gather: Callable = _identity,
+          reduce: Callable = _add_bias) -> torch.Tensor:
     """Full forward; condition/mask are accepted and ignored, as in the
-    reference's unconditional model."""
+    reference's unconditional model. gather, reduce: apply_with_temb's
+    tensor-parallel hooks."""
     del condition, mask
     temb = time_embedding(params, cfg, t_labels)
     if intermediates is not None:
         intermediates["temb"] = temb
     return apply_with_temb(params, cfg, batch, temb,
                            used_sigmas=used_sigmas(params, cfg, t_labels), train=train,
-                           generator=generator, intermediates=intermediates)
+                           generator=generator, intermediates=intermediates,
+                           gather=gather, reduce=reduce)

@@ -20,7 +20,7 @@ import torch
 from zedo_tpu_torch.models import nn
 from zedo_tpu_torch.models.score_mlp import ScoreMLPConfig, time_embedding, used_sigmas
 from zedo_tpu_torch.models.score_mlp import init_params as init_trunk
-from zedo_tpu_torch.parallel import draws
+from zedo_tpu_torch.utils import rng
 from zedo_tpu_torch.utils.config import resolve_device
 
 Params = dict
@@ -70,7 +70,7 @@ def random_mask_condition(generator: torch.Generator, condition: torch.Tensor,
     b, dev = condition.shape[0], condition.device
 
     def bernoulli(p, shape):
-        return draws.rand(generator, shape, device=dev) < p
+        return rng.rand(generator, shape, device=dev) < p
 
     if mask_cfg.pose_mask_prob > 0:
         drop = bernoulli(mask_cfg.pose_mask_prob, (b, 1, 1))

@@ -2,6 +2,6 @@
 process per GPU under torch.distributed, with JAX's mesh axes and results.
 
 `mesh` builds the process group and the data x model mesh, `collectives`
-runs the collectives over its axes, `draws` gives a rank the random draws of
-the global batch, `tensor_parallel` shards the ScoreMLP over the model axis
-and `multiprocess_check` runs the two-process checks."""
+runs the collectives over its axes, `tensor_parallel` shards the ScoreMLP
+over the model axis and `multiprocess_check` runs the two-process checks;
+utils.rng gives a rank the random draws of the global batch."""

@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from zedo_tpu_torch.parallel.mesh import Mesh
 
+
 def _group(mesh: Mesh, axis: Optional[str]):
     """The process group of `axis` (None: the whole mesh), or None when the
     collective is the identity."""

@@ -23,6 +23,7 @@ mesh's axis groups is a collective call of the whole world.
 """
 from __future__ import annotations
 
+import atexit
 import os
 import re
 from typing import Optional
@@ -85,12 +86,21 @@ def init_distributed(backend: Optional[str] = None, rank: Optional[int] = None,
     return dev
 
 
-def init_from_env(backend: Optional[str] = None, device="cuda") -> bool:
+def init_from_env(device="cuda") -> bool:
     """The CLIs' bring-up: join the process group when launched as one of
-    WORLD_SIZE > 1 ranks (torchrun); whether torch.distributed is up."""
+    WORLD_SIZE > 1 ranks (torchrun), and leave it at exit; whether
+    torch.distributed is up."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
-        init_distributed(backend=backend, device=device)
+        init_distributed(device=device)
+        atexit.register(_leave)
     return dist.is_initialized()
+
+
+def _leave() -> None:
+    # a process that exits with its group alive can abort in the teardown of
+    # Gloo's threads ("terminate called without an active exception")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def say(mesh: Optional["Mesh"]):

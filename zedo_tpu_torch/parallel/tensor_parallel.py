@@ -5,7 +5,7 @@ train step gets from `parallel.mesh.tp_shardings` and GSPMD
 Each leaf follows its `tp_shardings` rule: a 'row' leaf holds this rank's
 block of the hidden channels (its dim 0), the 'col' post_dense weight its
 block of the input channels (dim 1), a 'replicated' leaf the whole leaf.
-`make_apply` is score_mlp.apply on such shards:
+`make_apply` is score_mlp.apply on such shards, through its hooks:
 
   * each row-sharded layer computes its block of the output channels from
     the all-gathered input (pre_dense and the time layers read the
@@ -20,11 +20,12 @@ the sum over the axis of each rank's contribution (train.trainer sums it).
 """
 from __future__ import annotations
 
+import functools
 import re
 
 import torch
 
-from zedo_tpu_torch.models import nn, score_mlp
+from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.nn import tree_replace, tree_to_flat
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel.mesh import Mesh, tp_shardings
@@ -86,35 +87,16 @@ def gather_tree(tree: dict, rules: dict, mesh: Mesh, axis: str = "model") -> dic
 
 
 def make_apply(mesh: Mesh, axis: str = "model"):
-    """score_mlp.apply over the shards of a model on `axis` of `mesh`."""
+    """score_mlp.apply over the shards of a model on `axis` of `mesh`: its
+    hooks gather each residual layer's input and sum post_dense's partial
+    products, the bias joining on the axis's first rank."""
 
-    def apply(params, cfg: score_mlp.ScoreMLPConfig, batch: torch.Tensor,
-              t_labels: torch.Tensor, condition=None, mask=None, *, train: bool = False,
-              generator=None) -> torch.Tensor:
-        del condition, mask
-        temb = score_mlp.time_embedding(params, cfg, t_labels)
-        bs = batch.shape[0]
-        groups = cfg.group_norm_groups // mesh.axis_size(axis)
+    def gather(h: torch.Tensor) -> torch.Tensor:
+        return collectives.gather_channels(h, mesh, axis)
 
-        def layer(dense, inp, gnorm):
-            h = nn.linear(params[dense], inp) + nn.linear(params[dense + "_t"], temb)
-            h = nn.group_norm(params[gnorm], h, groups)
-            return nn.dropout(nn.silu(h), cfg.dropout, train, generator)
-
-        h = layer("pre_dense", batch.reshape(bs, -1), "pre_gnorm")
-        for idx in range(cfg.n_blocks):
-            b = f"b{idx + 1}"
-            h1 = layer(f"{b}_dense1", collectives.gather_channels(h, mesh, axis), f"{b}_gnorm1")
-            h2 = layer(f"{b}_dense2", collectives.gather_channels(h1, mesh, axis), f"{b}_gnorm2")
-            h = h + h2
-        post = params["post_dense"]
-        dt = torch.promote_types(h.dtype, post["weight"].dtype)
-        partial = h.to(dt) @ post["weight"].to(dt).T
+    def reduce(product: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         if mesh.index(axis) == 0:
-            partial = partial + post["bias"].to(dt)
-        res = collectives.sum_partials(partial, mesh, axis).reshape(bs, cfg.n_joints, -1)
-        if cfg.scale_by_sigma:
-            res = res / score_mlp.used_sigmas(params, cfg, t_labels).reshape(bs, 1, 1)
-        return res
+            product = product + bias
+        return collectives.sum_partials(product, mesh, axis)
 
-    return apply
+    return functools.partial(score_mlp.apply, gather=gather, reduce=reduce)

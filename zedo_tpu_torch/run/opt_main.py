@@ -5,7 +5,7 @@ and print MPJPE (protocol 1) and PA-MPJPE (protocol 2) by action.
         --ckpt_dir checkpoint/ --ckpt_name checkpoint_1500.pth --gt --hypo 50
 
 Port of zedo_tpu/run/opt_main.py, with the same flags plus `--device`
-(default cuda; `--device cpu` runs on the CPU) and `--backend`. Launched as
+(default cuda; `--device cpu` runs on the CPU). Launched as
 N ranks (`torchrun --nproc-per-node N -m zedo_tpu_torch.run.opt_main ...`)
 it pads the poses to a multiple of N, solves them on a data mesh of the N
 ranks (pipeline.solve_sharded, rank r on cuda:r unless --device names a
@@ -80,12 +80,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 
 def add_device_args(parser: argparse.ArgumentParser) -> None:
-    """--device and --backend, the flags of every CLI that runs on a mesh."""
+    """--device, the flag of every CLI that runs on a mesh."""
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda, cuda:k or cpu; under torchrun 'cuda' is each rank's own card")
-    parser.add_argument("--backend", type=str, default=None, choices=["nccl", "gloo"],
-                        help="torch.distributed backend under torchrun (default nccl on cuda, "
-                             "gloo on cpu; gloo lets ranks share one card)")
 
 
 def parse_args(argv=None):
@@ -135,7 +132,7 @@ def build_dataset(config, args):
 def cli_mesh(args):
     """The data mesh of the torchrun world when WORLD_SIZE > 1, else None."""
     device = getattr(args, "device", "cuda")
-    if not init_from_env(getattr(args, "backend", None), device):
+    if not init_from_env(device):
         return None
     return default_mesh(device=device)
 

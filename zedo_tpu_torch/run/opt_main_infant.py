@@ -6,7 +6,7 @@ longest bone and the mean MPJPE.
         --ckpt_dir checkpoint/ --ckpt_name infant.pth --hypo 1 [--control | --cond]
 
 Port of zedo_tpu/run/opt_main_infant.py, with the same flags plus
-`--device` (default cuda; `--device cpu` runs on the CPU) and `--backend`.
+`--device` (default cuda; `--device cpu` runs on the CPU).
 Launched as N ranks (`torchrun --nproc-per-node N -m
 zedo_tpu_torch.run.opt_main_infant ...`) it pads the frames to a multiple
 of N and solves them on a data mesh of the ranks

@@ -6,7 +6,7 @@ MINI-RGBD, SyRIP, both, or Human3.6M.
         [--fine_tune --fine_tune_ckpt adult.pth] [--restore_dir out/checkpoint_0.pth]
 
 Port of zedo_tpu/run/train_pose_mini.py, with the same flags plus
-`--device` (default cuda; `--device cpu` runs on the CPU) and `--backend`.
+`--device` (default cuda; `--device cpu` runs on the CPU).
 `--mesh` takes JAX's grammar over the torchrun world: auto (data-parallel
 over all ranks when there are more than one), off, dp[N] or dp[N],tpM
 (e.g. `torchrun --nproc-per-node 4 -m zedo_tpu_torch.run.train_pose_mini
@@ -133,7 +133,7 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {state, history, eval_history, output_dir} for
     in-process callers."""
     args = parse_args(argv)
-    init_from_env(args.backend, args.device)
+    init_from_env(args.device)
     mesh = mesh_from_spec(args.mesh, device=args.device)
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     main_rank = mesh is None or mesh.is_main

@@ -16,7 +16,7 @@ On a mesh (`train_loop(mesh=...)`, `make_sharded_train_step`) each rank
 takes its rows of every batch and the step keeps the global batch's
 semantics, as JAX's GSPMD-partitioned step does: every rank draws the
 global batch's times, noise and dropout masks and keeps its own
-(parallel.draws); the gradients and the loss are averaged over the data
+(utils.rng); the gradients and the loss are averaged over the data
 axis before the clip and Adam, so the replicas stay bit-identical. With a
 model axis the ScoreMLP is tensor-parallel (parallel.tensor_parallel): the
 leaves, their Adam moments and EMA shadows live as this rank's blocks, the
@@ -43,8 +43,9 @@ from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.nn import tree_to_flat
 from zedo_tpu_torch.ops import metrics as metrics_lib
-from zedo_tpu_torch.parallel import collectives, draws
+from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel import tensor_parallel as tp_lib
+from zedo_tpu_torch.utils import rng
 from zedo_tpu_torch.utils import checkpoint as ckpt_lib
 from zedo_tpu_torch.utils.config import resolve_device
 
@@ -163,14 +164,14 @@ class MeshSync:
         self.mesh, self.data_axis, self.model_axis = mesh, data_axis, model_axis
         self.rules, self.hidden = rules, hidden  # rules: {leaf name: tp rule} or None
 
-    def generator(self, gen, batch) -> draws.ShardedGenerator:
+    def generator(self, gen, batch) -> rng.ShardedGenerator:
         b, m = batch.shape[0], self.mesh
         i = m.index(self.data_axis)
         cols = None
         if self.rules is not None:
             w = self.hidden // m.axis_size(self.model_axis)
             cols = slice(m.index(self.model_axis) * w, (m.index(self.model_axis) + 1) * w)
-        return draws.ShardedGenerator(gen, slice(i * b, (i + 1) * b),
+        return rng.ShardedGenerator(gen, slice(i * b, (i + 1) * b),
                                       b * m.axis_size(self.data_axis), cols, self.hidden)
 
     def _all_reduce(self, tensors: list, axis: str, mean: bool) -> list:

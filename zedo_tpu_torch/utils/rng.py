@@ -1,4 +1,5 @@
-"""Random draws of the global batch, sliced to this rank's block.
+"""The random draws of the port's train step: a torch.Generator's own, or
+the global batch's sliced to a rank's block (ShardedGenerator).
 
 On a mesh the train step keeps the global batch's semantics, as JAX's
 GSPMD-partitioned step does: every rank seeds the same generator, draws what
