@@ -95,7 +95,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      mini batch, the warmup off) against --mesh off: the loss and each
      leaf's update, dp2's replicas and tp's replicated leaves bit-identical
      on both ranks. Its
-     seconds are two ranks sharing one card, not a scaling number.
+     seconds are two ranks sharing one card, not a scaling number;
+ 13. the rest of the surface, each entry point with the launch counts set
+     to 0 before it and checked after it: kernel #1 against its plain
+     version at the serving shapes (the 256-pose bucket x 5 hypotheses,
+     1,280 rows, and the low-latency bucket 32 x 5, 160 rows; hidden 1024,
+     both GroupNorm modes), timed with its host time, bound and library
+     chain; tools.bench_serving --reps 3 (full schedule) and --oil 200 --ipo
+     100 --bucket 32 --reps 3 (kernel #1 on every OIL forward of every
+     request, kernel #2 never; p50/p95 per request size and score_reuse);
+     examples.quickstart (fp32, against the JAX quickstart's MPJPE);
+     tools.make_trained_fixture --out <tmp> (its loss check, the numpy-
+     seeded files against the committed fixture byte for byte, the .pth
+     through load_any_checkpoint with and without use_ema, the gate MPJPE
+     of the prior the port trained); tools.make_clusters --dataset h36m on
+     phase 6's synthetic H36M workspace. utils.visualize is not run: the
+     card's machine has no matplotlib (the CPU tests draw with it).
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -169,6 +184,25 @@ JAX_TRAINED_BOUNDS = {
     "reuse4_delta_mm": 0.2376055270433426, "short_reuse2_mpjpe_mm": 22.902606964111328,
     "init_mm": 805.4117431640625}
 TRAINED_TOL_MM = 1.0
+
+# Best-hypothesis MPJPE (mm, root-centred as bench_trained.best_mpjpe) of
+# the JAX package's quickstart on the CPU: examples/quickstart.py's
+# pipeline.solve_jit in fp32 (Precision.HIGHEST) on the trained fixture's
+# 24 scenes x 2 hypotheses at 200 IPO / 300 OIL re-discretized steps, and
+# ZeDOEstimator.low_latency() on the first 8 scenes. Recomputed and held
+# against these values by
+# tests/test_torch_rest.py::test_chip_smoke_quickstart_reference.
+JAX_QUICKSTART_MM = {"solved": 32.176090240478516, "served": 16.888206481933594}
+# tools.make_trained_fixture: the gate MPJPE (mm) of the committed prior the
+# JAX tool trained (tests/fixtures/trained/family.npz), and how far the
+# port's own training may land from it: within GATE_TOL_MM and below
+# GATE_INIT_SHARE of the cluster init's error (stated before the first run)
+GATE_TOL_MM, GATE_INIT_SHARE = 10.0, 0.15
+# the serving buckets of tools.bench_serving: the default 256 and the
+# low-latency 32, each x 5 hypotheses
+SERVING_BUCKETS, SERVING_HYPO = (256, 32), 5
+BENCH_SERVING_REPS = 3
+CLUSTERS_S = 5  # clusters of the make_clusters run
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -1807,6 +1841,141 @@ def phase_multigpu(torch, sk, tsm, card):
     return result
 
 
+def kernel_at_serving_shapes(torch, sk, tsm, library_forward, dev):
+    """Kernel #1 against its plain version at the rows of a serving bucket,
+    both GroupNorm modes; timed in the default mode."""
+    weights = packed_weights(torch, sk, tsm, dev)
+    packed, vecs = weights["bf16"]
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for bucket in SERVING_BUCKETS:
+        rows = bucket * SERVING_HYPO
+        x = torch.randn(rows, 51, generator=gen).to(dev)
+        errs = []
+        for gn, (p, v) in weights.items():
+            sk.reset_launch_counts()
+            errs.append(check(torch, f"kernel #1 gn={gn} at the serving bucket {bucket} x "
+                              f"{SERVING_HYPO} vs plain", sk.fused_score_forward(x, p, v),
+                              sk.fused_score_forward_reference(x, p, v), rows))
+            if sk.path_launches != {"wgmma": 1, "wmma": 0}:
+                fail(f"{rows} rows: paths {sk.path_launches}, want one launch on wgmma")
+
+        def forward():
+            return sk.fused_score_forward(x, packed, vecs)
+
+        ms = cuda_ms(torch, forward, 50, 5)
+        plain_ms = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x, packed, vecs), 10, 2)
+        lib_ms = cuda_ms(torch, lambda: library_forward(x, packed, vecs), 20, 3)
+        bound_ms, bound_by, _ = bound(x, packed, vecs, rows)
+        host = host_us(torch, forward)
+        log(f"fused_score_forward at {rows} rows x 1024: kernel {ms:.4f} ms ({bound_ms / ms:.3f} "
+            f"of the {bound_by} bound {bound_ms:.4f} ms), wrapper host time {host:.1f} us a "
+            f"forward, plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms")
+        out[f"rows_{rows}"] = {"rows": rows, "max_abs_err": max(errs), "ms": ms,
+                               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "host_us_per_forward": host}
+    return out
+
+
+def phase_rest(torch, sk, split, tsm, tbt, card, dev):
+    """Phase 13: the serving latency tool, the quickstart, the fixture
+    regeneration and make_clusters on the card, and kernel #1 at the
+    serving shapes."""
+    from zedo_tpu_torch.examples import quickstart
+    from zedo_tpu_torch.tools import (bench_kernel, bench_serving, make_clusters,
+                                      make_trained_fixture)
+    from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
+
+    result = {"kernel": kernel_at_serving_shapes(torch, sk, tsm, bench_kernel.library_forward,
+                                                 dev)}
+    launches = 0
+    for bucket, extra in ((SERVING_BUCKETS[0], []),
+                          (SERVING_BUCKETS[1], ["--oil", "200", "--ipo", "100"])):
+        argv = ["--hypo", str(SERVING_HYPO), "--reps", str(BENCH_SERVING_REPS),
+                "--bucket", str(bucket), *extra]
+        rows, counts = counted(sk, split, "tools.bench_serving " + " ".join(argv),
+                               lambda: bench_serving.main(argv))
+        oil = 200 if extra else 1000
+        want = (BENCH_SERVING_REPS + 1) * len(bench_serving.request_sizes(bucket)) * sum(
+            math.ceil(oil / reuse) for reuse in bench_serving.REUSES)
+        if counts != {"fused_score_forward": want, "fused_score_forward_split": 0}:
+            fail(f"bench_serving --bucket {bucket}: launches {counts}, want {want} of kernel #1 "
+                 f"(every OIL forward of every request) and none of kernel #2")
+        if sk.path_launches != {"wgmma": want, "wmma": 0}:
+            fail(f"bench_serving --bucket {bucket}: kernel #1's paths {sk.path_launches}")
+        if {r["rows"] for r in rows} != {bucket * SERVING_HYPO}:
+            fail(f"bench_serving --bucket {bucket}: rows {[r['rows'] for r in rows]}")
+        for r in rows:
+            log(f"bench_serving on {card}: bucket {bucket}, reuse={r['reuse']} N={r['n']} "
+                f"S={r['s']}: p50 {r['p50_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms, "
+                f"{r['poses_per_s']:.1f} poses/s ({r['ipo_iterations']} IPO / "
+                f"{r['oil_iterations']} OIL steps, {r['rows']} rows)")
+        result[f"bench_serving_bucket_{bucket}"] = rows
+        launches += counts["fused_score_forward"]
+    result["launches"] = launches
+
+    qs, counts = counted(sk, split, "examples.quickstart", lambda: quickstart.main([]))
+    for key, name in (("solved_mm", "solved"), ("serve_mm", "served")):
+        ref = JAX_QUICKSTART_MM[name]
+        log(f"quickstart {name} MPJPE {qs[key]:.3f} mm (JAX quickstart on the CPU {ref:.3f} mm, "
+            f"tolerance {FIXTURE_TOL_MM} mm)")
+        if not abs(qs[key] - ref) <= FIXTURE_TOL_MM:
+            fail(f"quickstart {name} MPJPE {qs[key]} vs {ref}")
+    result["quickstart"] = {**qs, "launches": counts}
+
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "fixture")
+        t0 = time.perf_counter()
+        gate, counts = counted(sk, split, f"tools.make_trained_fixture --out {out}",
+                               lambda: make_trained_fixture.main(["--out", out]))
+        gate["wall_s"] = time.perf_counter() - t0
+        fixture = tbt.FIXTURE
+        for name in ("data/h36m/h36m_test.pkl", "clusters/h36m_cluster1.npy",
+                     "clusters/h36m_cluster2.npy"):
+            with open(os.path.join(fixture, name), "rb") as a, \
+                    open(os.path.join(out, name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"make_trained_fixture: {name} differs from the committed file")
+        committed = np.load(os.path.join(fixture, "family.npz"))
+        ours = np.load(os.path.join(out, "family.npz"))
+        for key in ("mu", "u", "gt"):
+            if committed[key].tobytes() != ours[key].tobytes():
+                fail(f"make_trained_fixture: family.npz's {key} differs from the committed one")
+        cfg = make_trained_fixture.model_config()
+        path = os.path.join(out, "checkpoint", "checkpoint_trained.pth")
+        raw, step = load_any_checkpoint(path, cfg, device=dev)
+        ema, _ = load_any_checkpoint(path, cfg, use_ema=True, device=dev)
+        moved = max((raw[k]["weight"] - ema[k]["weight"]).abs().max().item()
+                    for k in ("pre_dense", "post_dense"))
+        if step != make_trained_fixture.TRAIN_STEPS or not moved > 0:
+            fail(f"make_trained_fixture: the .pth gave step {step}, EMA distance {moved}")
+        ref = float(committed["mpjpe_mm"])
+        log(f"make_trained_fixture on {card}: gate MPJPE {gate['mpjpe_mm']:.3f} mm from "
+            f"{gate['init_mm']:.3f} mm (the committed JAX prior {ref:.3f} mm; tolerance "
+            f"{GATE_TOL_MM} mm and below {GATE_INIT_SHARE} of the init); loss "
+            f"{gate['loss_first_100']:.4f} -> {gate['loss_last_100']:.4f}; training "
+            f"{gate['train_s']:.1f} s, gate solve {gate['gate_s']:.1f} s, launches {counts}")
+        if not (abs(gate["mpjpe_mm"] - ref) <= GATE_TOL_MM
+                and gate["mpjpe_mm"] < GATE_INIT_SHARE * gate["init_mm"]):
+            fail(f"make_trained_fixture: gate MPJPE {gate['mpjpe_mm']} vs {ref}")
+        result["trained_fixture"] = gate
+
+        ws = os.path.join(root, "ws")
+        write_workspace(torch, tsm, ws, HEADLINE_N, HEADLINE_S, WILD_N)
+        h36m = os.path.join(ws, "data", "h36m")
+        os.link(os.path.join(h36m, "h36m_test.pkl"), os.path.join(h36m, "h36m_train.pkl"))
+        dest = os.path.join(root, f"h36m_cluster{CLUSTERS_S}.npy")
+        clusters, counts = counted(sk, split, "tools.make_clusters --dataset h36m", lambda: (
+            make_clusters.main(["--dataset", "h36m", "--data_dir", os.path.join(ws, "data"),
+                                dest, str(CLUSTERS_S)])))
+        saved = np.load(dest)
+        if saved.shape != (CLUSTERS_S, 17, 3) or not np.isfinite(saved).all() \
+                or np.abs(saved[:, 0]).max() != 0:
+            fail(f"make_clusters: {saved.shape}, root {np.abs(saved[:, 0]).max()}")
+        log(f"make_clusters: {saved.shape} from {HEADLINE_N} poses, root joint 0")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1883,6 +2052,12 @@ def main() -> int:
         **{f"gloo_rank_{r}_{tag}": multigpu[tag][r]["launches"]
            for tag in ("solve", "trace", "infant", "serve") for r in range(MULTI_RANKS)}}
     log(f"phase multi-GPU: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rest = phase_rest(torch, sk, split, tsm, tbt, card, dev)
+    entry["launches_serving"] = rest["launches"]
+    entry["serving_shapes"] = rest.pop("kernel")
+    rest["seconds"] = time.perf_counter() - t0
+    log(f"phase rest of the surface: {rest['seconds']:.1f} s")
     for e in (entry, entry_split):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
@@ -1891,7 +2066,7 @@ def main() -> int:
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
-                      "sampling": sampling, "multigpu": multigpu,
+                      "sampling": sampling, "multigpu": multigpu, "rest": rest,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

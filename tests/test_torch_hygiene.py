@@ -1,6 +1,6 @@
 """zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections, no absl,
-no configs; asks for CUDA by default and raises without it; no fallback from
-the kernel."""
+no configs, and no matplotlib at import time; asks for CUDA by default and
+raises without it; no fallback from the kernel."""
 import os
 import subprocess
 import sys
@@ -29,7 +29,8 @@ import zedo_tpu_torch
 for m in pkgutil.walk_packages(zedo_tpu_torch.__path__, "zedo_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "zedo_tpu", "ml_collections", "absl", "configs"))
+             if m.split(".")[0] in ("jax", "zedo_tpu", "ml_collections", "absl", "configs",
+                                    "matplotlib"))
 print("MODULES", len([m for m in sys.modules if m.startswith("zedo_tpu_torch")]))
 print("BAD", bad)
 print(sorted(m for m in sys.modules if m.startswith("zedo_tpu_torch")))
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_no_reference_package():
                  "zeroshot.infant", "data.mini_rgbd", "data.syrip", "run.opt_main_infant",
                  "diffusion.losses", "diffusion.ema", "diffusion.ode", "diffusion.guidance",
                  "train.trainer", "run.train_pose_mini", "run.sample", "tools.bench_train",
-                 "data.concat", "models.registry"):
+                 "data.concat", "models.registry", "tools.bench_serving", "tools.make_clusters",
+                 "tools.make_trained_fixture", "examples.quickstart", "utils.visualize"):
         assert f"zedo_tpu_torch.{name}" in out.stdout, name
 
 

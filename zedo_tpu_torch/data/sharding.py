@@ -1,5 +1,6 @@
 """Eval-batch sharding helpers (the port's own copy of `contiguous_chunks`,
-`pad_batch` and `unpad` from zedo_tpu/data/sharding.py; numpy only).
+`pad_batch`, `unpad` and `DistributedEvalSampler` from
+zedo_tpu/data/sharding.py; numpy only).
 
 A mesh's rank of data index r takes the r-th of `contiguous_chunks(N, D)`
 when D divides N, which is what `pad_batch` makes of any N."""
@@ -53,3 +54,35 @@ def pad_batch(arrays, multiple: int, axis: int = 0):
 def unpad(array: np.ndarray, mask: np.ndarray, axis: int = 0) -> np.ndarray:
     """Strip the padded tail given the mask from `pad_batch`."""
     return np.take(array, np.arange(int(mask.sum())), axis=axis)
+
+
+class DistributedEvalSampler:
+    """The reference's pad-free eval sampler: rank r iterates over the r-th
+    of `contiguous_chunks(len(dataset), num_replicas)`, no sample repeated;
+    with `shuffle`, in a permutation seeded by seed + epoch (`set_epoch`).
+    For DataLoader-style eval loops; the solve CLIs pad with `pad_batch`."""
+
+    def __init__(self, dataset, num_replicas: int = 1, rank: int = 0,
+                 shuffle: bool = False, seed: int = 0):
+        if rank >= num_replicas or rank < 0:
+            raise ValueError(
+                f"Invalid rank {rank}, rank should be in [0, {num_replicas - 1}]")
+        self.dataset = dataset
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self._chunks = contiguous_chunks(len(dataset), num_replicas)
+
+    def __iter__(self):
+        indices = self._chunks[self.rank]
+        if self.shuffle:
+            indices = np.random.RandomState(self.seed + self.epoch).permutation(indices)
+        return iter(indices.tolist())
+
+    def __len__(self):
+        return len(self._chunks[self.rank])
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch

@@ -102,6 +102,12 @@ def tree_replace(tree: Params, flat: dict, prefix: str = "") -> Params:
             for k, v in tree.items()}
 
 
+def zero_module(p: Params) -> Params:
+    """Zeros of every tensor of a module's params: the reference's
+    `zero_module`, the zero bridges of the ControlNet adapters."""
+    return tree_map(torch.zeros_like, p)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
     """Inverted dropout (torch semantics) of a hidden activation [..., C]
     with its keep mask drawn from `generator` (a torch.Generator, or a

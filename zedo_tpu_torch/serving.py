@@ -3,7 +3,8 @@
 Port of zedo_tpu/serving.py, on one device or on a mesh of ranks.
 
     est = ZeDOEstimator.from_torch_checkpoint(
-        "checkpoint_1500.pth", "clusters/h36m_cluster5.npy", dtype="bf16")
+        "checkpoint_1500.pth", "clusters/h36m_cluster5.npy",
+        config="configs/optim/concat_pose_optimization_h36m.py", dtype="bf16")
     out = est.predict(kp2d, K)   # poses [N, S, 17, 3], best [N], ...
 
 On a mesh (`mesh=`, parallel/mesh.py) every rank calls `predict` with the
@@ -25,7 +26,7 @@ from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.camera import project
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel.mesh import Mesh, mesh_from_spec
-from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_torch_checkpoint
+from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import pipeline
 
@@ -56,6 +57,9 @@ class ZeDOEstimator:
     clusters: np.ndarray  # [S, j, 3]
     device: torch.device
     batch_bucket: int = 256  # pad N up to a multiple
+    # the seed of the generator each predict() builds anew (the generic OIL
+    # path's noise), as JAX's predict builds PRNGKey(seed) on every call
+    seed: int = 0
     # a parallel.mesh.Mesh for multi-GPU serving: the padded batch is
     # sharded over its 'data' axis (pipeline.solve_sharded's placement).
     # Also takes 'auto' or a mesh_from_spec string ('off', 'dpN', ...),
@@ -78,26 +82,44 @@ class ZeDOEstimator:
 
     @classmethod
     def from_torch_checkpoint(cls, ckpt_path: str, cluster_path: str,
-                              preset: Optional[presets.Preset] = None,
-                              dtype: str = "bf16", batch_bucket: int = 256,
+                              preset: Optional[presets.Preset] = None, config=None,
+                              hypo: Optional[int] = None, dtype: str = "bf16",
+                              use_ema: bool = False, batch_bucket: int = 256,
                               device="cuda", mesh=None) -> "ZeDOEstimator":
-        """preset: the serving configuration (default presets.h36m());
-        dtype 'bf16' runs the score network in bf16 (the fused CUDA kernel
-        on the card), 'fp32' in full f32. mesh: a Mesh with a 'data' axis,
-        'auto' (a data mesh over all ranks when there are more than one),
-        a mesh_from_spec string, or None; on a mesh the weights load onto
-        this rank's device (mesh.device, from `device`). The batch bucket
-        must be divisible by the data-axis size."""
+        """preset: the serving configuration (default presets.h36m()); or
+        config: a configuration as the CLIs' --config takes it (a preset
+        name such as "h36m", or the path of a configs/optim file it
+        restates) or a presets.Config, e.g. presets.optim_config("h36m")
+        with other model widths; give one of the two. hypo: keep the first
+        `hypo` clusters. dtype 'bf16' runs the score network in bf16 (the
+        fused CUDA kernel on the card), 'fp32' in full f32. use_ema: the
+        checkpoint's EMA shadow weights (the raw weights by default: the
+        reference loads EMA at inference but never applies it). mesh: a
+        Mesh with a 'data' axis, 'auto' (a data mesh over all ranks when
+        there are more than one), a mesh_from_spec string, or None; on a
+        mesh the weights load onto this rank's device (mesh.device, from
+        `device`). The batch bucket must be divisible by the data-axis
+        size."""
         if dtype not in ("bf16", "fp32"):
             raise ValueError(f"dtype must be 'bf16' or 'fp32', got {dtype!r}")
+        if preset is not None and config is not None:
+            raise ValueError("give a preset or a config, not both")
+        if config is not None:
+            if isinstance(config, str):
+                from zedo_tpu_torch.run.opt_main import load_config
+
+                config = load_config(config)
+            preset = presets.from_optim_config(config)
+        preset = preset or presets.h36m()
         mesh = _resolve_mesh(mesh, device)
         dev = mesh.device if mesh is not None else resolve_device(device)
-        preset = preset or presets.h36m()
-        # the raw weights: the reference loads EMA at inference but never applies it
-        params = load_torch_checkpoint(ckpt_path, preset.model_cfg, dev)["params"]
+        params, _step = load_any_checkpoint(ckpt_path, preset.model_cfg, use_ema=use_ema,
+                                            device=dev)
         if dtype == "bf16":
             params = tree_map(lambda x: x.to(torch.bfloat16), params)
         clusters = np.asarray(convert_cluster_file(cluster_path), np.float32)
+        if hypo is not None:
+            clusters = clusters[:hypo]
         return cls(params=params, model_cfg=preset.model_cfg, sde=preset.sde,
                    sampler=preset.sampler, zcfg=preset.zcfg, clusters=clusters,
                    device=dev, batch_bucket=batch_bucket, mesh=mesh)
@@ -154,9 +176,10 @@ class ZeDOEstimator:
             # this rank's block of the padded rows, solved, ranked and packed here
             kp, kk, conf = pipeline.shard_rows(self.mesh, "data", len(mask), *buffers)
             pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg)
+        generator = torch.Generator(self.device).manual_seed(self.seed)
         with torch.no_grad():
             result = pipeline.solve(self.params, self.model_cfg, self.sde, self.sampler,
-                                    self.zcfg, clusters, kp, conf, kk)
+                                    self.zcfg, clusters, kp, conf, kk, generator=generator)
             packed = _rank_and_pack(result.poses, result.translations, kp, kk)
         if self.mesh is None:
             host = packed.cpu()  # the one device-to-host copy

@@ -10,6 +10,10 @@ those names (`[out, in]` weights), so a state_dict loads directly.
 counterparts of the JAX package's orbax ones: the same .pth layout (so
 either package's `load_torch_checkpoint` reads the trained prior), plus
 the whole EMA shadow and the Adam state for a resume.
+
+`flat_to_tree` and `tree_to_flat` (the latter defined in models/nn.py)
+convert between state-dict names and nested params, as the JAX module's
+functions of those names do.
 """
 from __future__ import annotations
 
@@ -45,7 +49,9 @@ def strip_module_prefix(state_dict: dict) -> dict:
     return {(k[7:] if k.startswith("module.") else k): v for k, v in state_dict.items()}
 
 
-def _flat_to_tree(flat: dict, device) -> dict:
+def flat_to_tree(flat: dict, device="cuda") -> dict:
+    """{'a.b.c': array} -> nested dicts of tensors on `device`."""
+    device = resolve_device(device)
     tree: dict = {}
     for key, value in flat.items():
         parts = key.split(".")
@@ -62,7 +68,7 @@ def params_from_torch_state_dict(state_dict: dict, cfg: ScoreMLPConfig,
     dev = resolve_device(device)
     flat = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
             for k, v in strip_module_prefix(state_dict).items()}
-    tree = _flat_to_tree(flat, dev)
+    tree = flat_to_tree(flat, dev)
     if "sigmas" not in tree:
         tree["sigmas"] = torch.as_tensor(get_sigmas(cfg), dtype=torch.float32,
                                          device=dev)
@@ -122,9 +128,9 @@ def restore_native(path: str, device="cuda") -> dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     ema = ckpt["ema"]
     return {"epoch": int(ckpt["epoch"]), "step": int(ckpt["step"]),
-            "params": _flat_to_tree(strip_module_prefix(ckpt["model_state_dict"]), dev),
+            "params": flat_to_tree(strip_module_prefix(ckpt["model_state_dict"]), dev),
             "ema": {"decay": ema["decay"], "num_updates": ema["num_updates"],
-                    "shadow_params": _flat_to_tree(ema["shadow_state_dict"], dev)},
+                    "shadow_params": flat_to_tree(ema["shadow_state_dict"], dev)},
             "opt_state": ckpt["optimizer_state_dict"]}
 
 
@@ -144,7 +150,7 @@ def ema_shadow_to_params(shadow_params: list, cfg: ScoreMLPConfig, device="cuda"
         raise ValueError(
             f"EMA shadow length {len(shadow_params)} != expected {len(names)}")
     flat = {n: p.detach().cpu().numpy() for n, p in zip(names, shadow_params)}
-    return _flat_to_tree(flat, resolve_device(device))
+    return flat_to_tree(flat, resolve_device(device))
 
 
 def load_torch_checkpoint(path: str, cfg: ScoreMLPConfig, device="cuda") -> dict:
@@ -185,6 +191,16 @@ def load_any_checkpoint(path: str, cfg: ScoreMLPConfig, use_ema: bool = False, l
             "using the raw weights")
     params = ckpt["ema_params"] if (use_ema and ckpt["ema_params"]) else ckpt["params"]
     return params, ckpt["step"]
+
+
+def to_flattened_numpy(x) -> np.ndarray:
+    """A tensor (on any device) flattened to 1-D numpy."""
+    return (x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)).reshape((-1,))
+
+
+def from_flattened_numpy(x: np.ndarray, shape, device="cuda") -> torch.Tensor:
+    """1-D numpy -> a tensor of `shape` on `device`."""
+    return torch.as_tensor(np.asarray(x).reshape(shape)).to(resolve_device(device))
 
 
 def convert_cluster_file(path: str) -> np.ndarray:
