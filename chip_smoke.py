@@ -103,7 +103,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      both GroupNorm modes), timed with its host time, bound and library
      chain; tools.bench_serving --reps 3 (full schedule) and --oil 200 --ipo
      100 --bucket 32 --reps 3 (kernel #1 on every OIL forward of every
-     request, kernel #2 never; p50/p95 per request size and score_reuse);
+     request, at 1,280 and 160 rows as its wrapper records them, kernel #2
+     never; p50/p95 per request size and score_reuse);
      examples.quickstart (fp32, against the JAX quickstart's MPJPE);
      tools.make_trained_fixture --out <tmp> (its loss check, the numpy-
      seeded files against the committed fixture byte for byte, the .pth
@@ -1903,14 +1904,19 @@ def phase_rest(torch, sk, split, tsm, tbt, card, dev):
                  f"(every OIL forward of every request) and none of kernel #2")
         if sk.path_launches != {"wgmma": want, "wmma": 0}:
             fail(f"bench_serving --bucket {bucket}: kernel #1's paths {sk.path_launches}")
-        if {r["rows"] for r in rows} != {bucket * SERVING_HYPO}:
-            fail(f"bench_serving --bucket {bucket}: rows {[r['rows'] for r in rows]}")
+        # the rows kernel #1 was given, as its wrapper recorded them
+        if sk.row_launches != {bucket * SERVING_HYPO: want}:
+            fail(f"bench_serving --bucket {bucket}: kernel #1's launches by rows "
+                 f"{sk.row_launches}, want {want} at {bucket * SERVING_HYPO}")
         for r in rows:
             log(f"bench_serving on {card}: bucket {bucket}, reuse={r['reuse']} N={r['n']} "
                 f"S={r['s']}: p50 {r['p50_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms, "
                 f"{r['poses_per_s']:.1f} poses/s ({r['ipo_iterations']} IPO / "
-                f"{r['oil_iterations']} OIL steps, {r['rows']} rows)")
+                f"{r['oil_iterations']} OIL steps)")
+        log(f"bench_serving --bucket {bucket}: kernel #1's launches by rows, as its wrapper "
+            f"recorded them: {sk.row_launches}")
         result[f"bench_serving_bucket_{bucket}"] = rows
+        result[f"row_launches_bucket_{bucket}"] = dict(sk.row_launches)
         launches += counts["fused_score_forward"]
     result["launches"] = launches
 

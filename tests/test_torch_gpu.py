@@ -68,11 +68,13 @@ def test_cuda_kernel_matches_plain_version(cuda_device, hidden, rows, gn):
     gen = torch.Generator().manual_seed(1)
     for n in rows:
         x = torch.randn(n, 51, generator=gen).to(cuda_device)
-        before = tsk.launch_counts["fused_score_forward"], tsk.path_launches[path]
+        before = (tsk.launch_counts["fused_score_forward"], tsk.path_launches[path],
+                  tsk.row_launches.get(n, 0))
         got = tsk.fused_score_forward(x, packed, vecs)
         torch.cuda.synchronize()
         assert tsk.launch_counts["fused_score_forward"] == before[0] + 1
         assert tsk.path_launches[path] == before[1] + 1
+        assert tsk.row_launches[n] == before[2] + 1
         want = tsk.fused_score_forward_reference(x, packed, vecs)
         assert (got - want).abs().max().item() < TOL
 

@@ -1,6 +1,7 @@
 """zedo_tpu_torch stands alone: no jax, no zedo_tpu, no ml_collections, no absl,
 no configs, and no matplotlib at import time; asks for CUDA by default and
 raises without it; no fallback from the kernel."""
+import ast
 import os
 import subprocess
 import sys
@@ -55,6 +56,30 @@ def test_port_imports_no_jax_no_reference_package():
         assert f"zedo_tpu_torch.{name}" in out.stdout, name
 
 
+def test_library_layers_import_no_cli():
+    """Below the entry points (run/, tools/, examples/) no module imports a
+    CLI, at import time or inside a function."""
+    root = os.path.join(REPO, "zedo_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        rel = os.path.relpath(dirpath, root).split(os.sep)[0]
+        if rel in ("run", "tools", "examples"):
+            continue
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                         [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+                if any(n == "zedo_tpu_torch.run" or n.startswith("zedo_tpu_torch.run.")
+                       for n in names):
+                    offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
@@ -101,7 +126,7 @@ def test_kernel_wrapper_never_falls_back():
     # on the CPU the kernel path is never chosen automatically
     bf16 = tree_map(lambda a: a.to(torch.bfloat16), params)
     assert not toil._kernel_eligible(bf16, cfg)
-    before = tsk.launch_counts["fused_score_forward"]
+    before = tsk.launch_counts["fused_score_forward"], dict(tsk.row_launches)
     out = tsk.fused_score_forward(torch.zeros(4, 51), packed, vecs)
     assert out.shape == (4, 51) and np.isfinite(out.numpy()).all()
-    assert tsk.launch_counts["fused_score_forward"] == before
+    assert (tsk.launch_counts["fused_score_forward"], tsk.row_launches) == before

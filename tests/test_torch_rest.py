@@ -36,6 +36,7 @@ from zedo_tpu_torch.serving import ZeDOEstimator
 from zedo_tpu_torch.tools import bench_serving, make_clusters, make_trained_fixture
 from zedo_tpu_torch.utils import checkpoint as tckpt
 from zedo_tpu_torch.utils import visualize
+from zedo_tpu_torch.zeroshot import pipeline as tpipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROT_ATOL = 1e-5
@@ -270,6 +271,9 @@ def test_gradient_field_rejects_unknown_noise():
     key2d, key3d, k, _, _ = _gf_scene()
     with pytest.raises(ValueError, match="unknown noise_type"):
         tgf.gradient_field(_t(key2d), _t(key3d), _t(k), noise_type="laplace")
+    for noise_type in ("gaussian", "uniform"):  # no global, unseeded draws
+        with pytest.raises(ValueError, match="give one"):
+            tgf.gradient_field(_t(key2d), _t(key3d), _t(k), noise_type=noise_type)
 
 
 # ------------------------------------------------------------ small helpers
@@ -335,7 +339,17 @@ ERR_PX = 1e-4
 
 @pytest.mark.parametrize("hypo,use_ema", [(1, False), (None, True)])
 @pytest.mark.parametrize("seed", [0, 7])
-def test_serving_hypo_ema_seed_match_jax(jax_estimators, hypo, use_ema, seed):
+def test_serving_hypo_ema_seed_match_jax(jax_estimators, hypo, use_ema, seed, monkeypatch):
+    # the estimator's seed reaches the solve as a generator built anew on
+    # every predict, as JAX's predict builds PRNGKey(seed) on every call
+    drawn = []
+    solve = tpipeline.solve
+
+    def recording_solve(*args, generator=None, **kwargs):
+        drawn.append((generator.initial_seed(), generator.get_state().clone()))
+        return solve(*args, generator=generator, **kwargs)
+
+    monkeypatch.setattr(tpipeline, "solve", recording_solve)
     family = np.load(os.path.join(tbt.FIXTURE, "family.npz"))
     _, k, px = tbt.make_scenes(family, 6)
     config = presets.optim_config("h36m")
@@ -349,6 +363,11 @@ def test_serving_hypo_ema_seed_match_jax(jax_estimators, hypo, use_ema, seed):
     assert len(test.clusters) == len(jest.clusters) == (hypo or 2)
     got, want = test.predict(px, k), jest.predict(px, k)
     np.testing.assert_allclose(got["poses"], want["poses"], atol=1e-4)
+    np.testing.assert_array_equal(test.predict(px, k)["poses"], got["poses"])
+    fresh = torch.Generator().manual_seed(seed).get_state()
+    assert len(drawn) == 2
+    for initial_seed, state in drawn:
+        assert initial_seed == seed and torch.equal(state, fresh)
     # the ranking: each hypothesis's reprojection error (px) agrees within
     # ERR_PX, so the best agrees wherever the best two are further apart than
     # twice that (a closer pair is a tie within the packages' rounding)
@@ -441,6 +460,7 @@ def test_make_trained_fixture_seeded_files_and_checkpoint(tmp_path, monkeypatch)
     assert not torch.equal(port["params"]["post_dense"]["weight"],
                            port["ema_params"]["post_dense"]["weight"])
     assert jax_ckpt["step"] == port["step"] == 200
+    assert torch.load(path, weights_only=False)["ema"]["num_updates"] == 200
     with pytest.raises(SystemExit):
         make_trained_fixture.main([])  # --out is required
 

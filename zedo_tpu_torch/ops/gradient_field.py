@@ -101,10 +101,13 @@ def gradient_field(key2d: torch.Tensor, key3d: torch.Tensor, k: torch.Tensor,
     pose; k: [..., 3, 3]; t: a fixed translation [..., 1, 3], or None to
     solve it; conf: [..., j] or None. noise_type: None, "gaussian" (noise
     scaled by T, as the reference adds std * randn * t) or "uniform" (the
-    reference's name for randn - 0.5), drawn from `generator`.
+    reference's name for randn - 0.5), drawn from `generator`, a
+    torch.Generator, which a noise type requires.
     Returns (gradient [..., j, 3], T [..., 1, 3])."""
     if noise_type not in (None, "gaussian", "uniform"):
         raise ValueError(f"unknown noise_type {noise_type!r}")
+    if noise_type is not None and generator is None:
+        raise ValueError(f"noise_type {noise_type!r} draws its noise from `generator`; give one")
     rays = backproject_rays(key2d, k)
     conf_c = clamp_confidence(conf) if conf is not None else None
     if t is None:

@@ -37,17 +37,20 @@ LANE = 128
 GN_EPS = 1e-5
 
 # launches of the CUDA kernel, by wrapper, and of fused_score_forward by
-# GroupNorm statistics mode and by kernel path; the wrapper adds one to each
-# per forward (a forward is six layer launches in the C library)
+# GroupNorm statistics mode, by kernel path and by the rows it was given;
+# the wrapper adds one to each per forward (a forward is six layer launches
+# in the C library)
 launch_counts = {"fused_score_forward": 0}
 gn_mode_launches = {"bf16": 0, "f32": 0}
 path_launches = {"wgmma": 0, "wmma": 0}
+row_launches: dict = {}
 
 
 def reset_launch_counts() -> None:
     for counts in (launch_counts, gn_mode_launches, path_launches):
         for name in counts:
             counts[name] = 0
+    row_launches.clear()
 
 
 class PackedScoreWeights(NamedTuple):
@@ -346,6 +349,7 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
     launch_counts["fused_score_forward"] += 1
     gn_mode_launches["bf16" if mode else "f32"] += 1
     path_launches["wgmma" if wgmma else "wmma"] += 1
+    row_launches[b] = row_launches.get(b, 0) + 1
     return out
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from pathlib import Path
 
 from zedo_tpu_torch.diffusion.sampling import PCSampler, get_sampling_fn
 from zedo_tpu_torch.diffusion.sde import SDE, build_sde
@@ -107,6 +108,27 @@ def optim_config(name: str) -> Config:
                  "score_reuse": 1, "gn_fp32": False, "use_pallas": None,
                  "pallas_interpret": False, **copy.deepcopy(_ZEDO[name])},
     })
+
+
+# configs/optim/concat_pose_optimization_<suffix>.py -> preset
+CONFIG_FILES = {"h36m": "h36m", "3dhp": "3dhp", "pw3d": "3dpw", "ski": "ski", "wild": "wild"}
+_CONFIG_PREFIX = "concat_pose_optimization_"
+
+
+def load_config(arg: str, files: dict = CONFIG_FILES) -> Config:
+    """A preset by name, or by the path of the configs/optim file it
+    restates, as the CLIs' --config takes it; `files` maps the files'
+    suffixes to the presets a caller takes."""
+    names = tuple(files.values())
+    if arg in names:
+        return optim_config(arg)
+    stem = Path(arg).stem
+    suffix = stem[len(_CONFIG_PREFIX):] if stem.startswith(_CONFIG_PREFIX) else None
+    if not arg.endswith(".py") or suffix not in files:
+        raise ValueError(
+            f"--config {arg!r}: give a preset ({', '.join(names)}) or one of "
+            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(files)}}}.py")
+    return optim_config(files[suffix])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,8 +16,9 @@ import argparse
 import numpy as np
 
 from zedo_tpu_torch.run.opt_main import (
-    add_common_args, build_dataset, cli_mesh, evaluate, load_config, run_pipeline,
+    add_common_args, build_dataset, cli_mesh, evaluate, run_pipeline,
 )
+from zedo_tpu_torch.presets import load_config
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device
 

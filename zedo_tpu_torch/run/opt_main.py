@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch import presets
+from zedo_tpu_torch.presets import CONFIG_FILES, load_config
 from zedo_tpu_torch.data import DATASETS
 from zedo_tpu_torch.data.sharding import pad_batch
 from zedo_tpu_torch.models.nn import tree_map
@@ -49,16 +50,13 @@ CLUSTER_FILES = {
     "wild": "h36m_cluster{s}.npy",
 }
 
-# configs/optim/concat_pose_optimization_<suffix>.py -> preset
-CONFIG_FILES = {"h36m": "h36m", "3dhp": "3dhp", "pw3d": "3dpw", "ski": "ski", "wild": "wild"}
-_CONFIG_PREFIX = "concat_pose_optimization_"
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     """The flags opt_main and inference share."""
     parser.add_argument("--config", required=True,
                         help=f"a preset ({', '.join(CONFIG_FILES.values())}) or the path of "
-                             f"configs/optim/{_CONFIG_PREFIX}<name>.py")
+                             "configs/optim/concat_pose_optimization_<name>.py")
     parser.add_argument("--ckpt_dir", type=str)
     parser.add_argument("--ckpt_name", type=str)
     parser.add_argument("--gt", action="store_true", default=False,
@@ -92,21 +90,6 @@ def parse_args(argv=None):
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler trace of the solve to DIR/trace.json")
     return parser.parse_args(argv)
-
-
-def load_config(arg: str, files: dict = CONFIG_FILES) -> presets.Config:
-    """A preset by name, or by the path of the configs/optim file it
-    restates; `files` maps the files' suffixes to the presets a CLI takes."""
-    names = tuple(files.values())
-    if arg in names:
-        return presets.optim_config(arg)
-    stem = Path(arg).stem
-    suffix = stem[len(_CONFIG_PREFIX):] if stem.startswith(_CONFIG_PREFIX) else None
-    if not arg.endswith(".py") or suffix not in files:
-        raise ValueError(
-            f"--config {arg!r}: give a preset ({', '.join(names)}) or one of "
-            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(files)}}}.py")
-    return presets.optim_config(files[suffix])
 
 
 def load_clusters(cluster_dir: str, dataset: str, hypo: int) -> np.ndarray:

@@ -38,7 +38,8 @@ from zedo_tpu_torch.data.mini_rgbd import SMIL_TO_H36M, mini_intrinsics, mini_rg
 from zedo_tpu_torch.data.syrip import syrip
 from zedo_tpu_torch.models import control_mlp, score_mlp, score_mlp_cond
 from zedo_tpu_torch.parallel.mesh import say
-from zedo_tpu_torch.run.opt_main import add_device_args, cli_mesh, load_config
+from zedo_tpu_torch.presets import load_config
+from zedo_tpu_torch.run.opt_main import add_device_args, cli_mesh
 from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint

@@ -30,8 +30,8 @@ from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.registry import make_mlp_config
-from zedo_tpu_torch.run.opt_main import CONFIG_FILES as OPT_MAIN_CONFIGS
-from zedo_tpu_torch.run.opt_main import load_config
+from zedo_tpu_torch.presets import CONFIG_FILES as OPT_MAIN_CONFIGS
+from zedo_tpu_torch.presets import load_config
 from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device
 

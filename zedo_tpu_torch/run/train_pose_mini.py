@@ -39,7 +39,8 @@ from zedo_tpu_torch.models import control_mlp, score_mlp_cond
 from zedo_tpu_torch.models.registry import make_mlp_config
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel.mesh import init_from_env, mesh_from_spec
-from zedo_tpu_torch.run.opt_main import add_device_args, load_config
+from zedo_tpu_torch.presets import load_config
+from zedo_tpu_torch.run.opt_main import add_device_args
 from zedo_tpu_torch.train import trainer
 from zedo_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device

@@ -106,9 +106,7 @@ class ZeDOEstimator:
             raise ValueError("give a preset or a config, not both")
         if config is not None:
             if isinstance(config, str):
-                from zedo_tpu_torch.run.opt_main import load_config
-
-                config = load_config(config)
+                config = presets.load_config(config)
             preset = presets.from_optim_config(config)
         preset = preset or presets.h36m()
         mesh = _resolve_mesh(mesh, device)

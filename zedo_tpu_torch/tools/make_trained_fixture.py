@@ -36,14 +36,12 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch import bench_trained
-from zedo_tpu_torch.diffusion import ema as ema_lib
 from zedo_tpu_torch.diffusion import losses as losses_lib
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.models import score_mlp
-from zedo_tpu_torch.models.nn import tree_to_flat
 from zedo_tpu_torch.presets import Config
-from zedo_tpu_torch.utils.checkpoint import _param_order
+from zedo_tpu_torch.utils.checkpoint import save_native
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import ipo as ipo_lib
 from zedo_tpu_torch.zeroshot import oil as oil_lib
@@ -89,7 +87,7 @@ def model_config() -> score_mlp.ScoreMLPConfig:
 
 
 def train_prior(dev: torch.device):
-    """(cfg, params, EMA params, mu, u, losses [TRAIN_STEPS]) of the prior
+    """(cfg, params, EMA state, mu, u, losses [TRAIN_STEPS]) of the prior
     trained with the port's SDE loss step."""
     train_poses, mu, u = pose_family()
     cfg = model_config()
@@ -117,23 +115,7 @@ def train_prior(dev: torch.device):
     if not last < LOSS_DROP * first:
         raise RuntimeError(f"no training: the loss went from {first:.4f} to {last:.4f} "
                            f"(the last 100 steps' mean must be below {LOSS_DROP} of the first's)")
-    return cfg, state.params, ema_lib.params_of(state.ema), mu, u, losses
-
-
-def write_checkpoint(out: str, cfg, params, ema_params) -> str:
-    """The reference's .pth layout, as the JAX tool writes it."""
-    ckpt_dir = os.path.join(out, "checkpoint")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    flat = {k: v.detach().float().cpu() for k, v in sorted(tree_to_flat(params).items())}
-    ema_flat = tree_to_flat(ema_params)
-    shadow = [ema_flat[name].detach().float().cpu() for name in _param_order(cfg)]
-    path = os.path.join(ckpt_dir, "checkpoint_trained.pth")
-    torch.save({"epoch": 1, "model_state_dict": {"module." + k: v for k, v in flat.items()},
-                "optimizer_state_dict": None,
-                "ema": {"decay": 0.999, "num_updates": TRAIN_STEPS, "shadow_params": shadow},
-                "step": TRAIN_STEPS}, path)
-    print("checkpoint written:", path, flush=True)
-    return path
+    return cfg, state.params, state.ema, mu, u, losses
 
 
 def write_scenes(out: str, mu, u) -> np.ndarray:
@@ -203,9 +185,14 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    cfg, params, ema_params, mu, u, losses = train_prior(dev)
+    cfg, params, ema, mu, u, losses = train_prior(dev)
     train_s = time.perf_counter() - t0
-    write_checkpoint(args.out, cfg, params, ema_params)
+    ckpt_dir = os.path.join(args.out, "checkpoint")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    # the trainer's writer: the reference's .pth layout, read by both packages
+    path = os.path.join(ckpt_dir, "checkpoint_trained.pth")
+    save_native(path, 1, TRAIN_STEPS, params, ema, None, cfg)
+    print("checkpoint written:", path, flush=True)
     gt = write_scenes(args.out, mu, u)
     t1 = time.perf_counter()
     mpjpe_mm, init_mm = gate_numbers(cfg, params, mu, u, gt, dev)
