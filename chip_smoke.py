@@ -111,7 +111,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      through load_any_checkpoint with and without use_ema, the gate MPJPE
      of the prior the port trained); tools.make_clusters --dataset h36m on
      phase 6's synthetic H36M workspace. utils.visualize is not run: the
-     card's machine has no matplotlib (the CPU tests draw with it).
+     card's machine has no matplotlib (the CPU tests draw with it);
+ 14. config files, read as JAX's CLIs and serving read them (presets.
+     read_config_file, no ml_collections), each run with the launch counts
+     set to 0 before it and checked after it: a wrapper of
+     configs/optim/concat_pose_optimization_h36m.py setting ZeDO.sample=1
+     in unlocked() through run.opt_main --hypo 50 --gt --strict_batch
+     --dtype auto on phase 6's synthetic workspace, rebuilt from its seed
+     (kernel #1 on all 1000 OIL forwards, on wgmma; the poses bit-equal to
+     phase 6's --config h36m run); ZeDOEstimator.from_torch_checkpoint(
+     config_path=examples/quickstart_config.py) on the trained fixture in
+     bf16, its predict bit-equal to the preset estimator's, kernel #1's
+     launches by rows; solve_one_hypothesis on the generic OIL path
+     (Langevin corrector) with a generator (one seed twice bit-equal, two
+     seeds apart) and a uniform reproj_weight against the unweighted trace.
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -1032,7 +1045,7 @@ def phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card):
             fail(f"inference --eval: PA-MPJPE {wout['p2']} vs MPJPE {wout['p1']}")
         log(f"inference --eval on {WILD_N} wild poses: solve {wout['solve_s']:.3f} s, "
             f"P1 {wout['p1'] * 1000:.3f} mm, P2 {wout['p2'] * 1000:.3f} mm")
-    return result
+    return result, poses
 
 
 def infant_oil_inputs(torch, dev, rows, seed):
@@ -1502,7 +1515,7 @@ def train_initial_params(torch, overrides=TRAIN_OVERRIDES):
     from zedo_tpu_torch.run import train_pose_mini
     from zedo_tpu_torch.utils.config import apply_overrides
 
-    config = apply_overrides(train_pose_mini.load_config("mini", train_pose_mini.CONFIG_FILES),
+    config = apply_overrides(train_pose_mini.load_config("mini", train_pose_mini.PRESETS),
                              list(overrides))
     cfg = make_mlp_config(config, n_joints=config.DATASET.NUM_JOINT)
     return flat_params(score_mlp.init_params(torch.Generator().manual_seed(config.seed), cfg,
@@ -1982,6 +1995,122 @@ def phase_rest(torch, sk, split, tsm, tbt, card, dev):
     return result
 
 
+# phase 14's wrapper config: the stock H36M file with what phase 6 passes
+# as --override, set inside unlocked() as a user's wrapper does
+WRAPPER_CONFIG = """import configs.optim.concat_pose_optimization_h36m as base
+
+
+def get_config():
+    config = base.get_config()
+    with config.unlocked():
+        config.ZeDO.sample = 1
+    return config
+"""
+QUICKSTART_CONFIG = os.path.join(REPO, "examples", "quickstart_config.py")
+# the generic OIL path of phase 14: the fixture's first scenes, a short
+# schedule, the Langevin corrector (no fast path)
+GENERIC_N, GENERIC_IPO, GENERIC_OIL = 24, 40, 50
+TRACE_RTOL = 1e-5  # uniform reproj_weight against the unweighted trace
+
+
+def phase_config_files(torch, sk, split, tsm, tbt, presets, ZeDOEstimator, opt_main,
+                       batch_cli_poses, card, dev):
+    """Phase 14: config files read as JAX's CLIs and serving read them. A
+    wrapper of the stock H36M file through run.opt_main at 886 x 50 against
+    phase 6's --config h36m run; the fixture's estimator from
+    examples/quickstart_config.py against the preset's; the generic OIL
+    path's generator and reproj_weight through solve_one_hypothesis."""
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.zeroshot import pipeline
+
+    result = {}
+    with tempfile.TemporaryDirectory() as root:
+        common = write_workspace(torch, tsm, os.path.join(root, "ws"), HEADLINE_N, HEADLINE_S,
+                                 WILD_N)
+        wrapper = os.path.join(root, "h36m_sample1.py")
+        with open(wrapper, "w") as f:
+            f.write(WRAPPER_CONFIG)
+        argv = ["--config", wrapper, "--hypo", str(HEADLINE_S), "--gt", "--dtype", "auto",
+                *common]
+        out = cli_launches(sk, split, f"run.opt_main --config <wrapper of the h36m file> --hypo "
+                           f"{HEADLINE_S} --gt --strict_batch --dtype auto ({HEADLINE_N} poses, "
+                           "hidden 1024)", 1000, lambda: opt_main.main(argv))
+    poses = out["poses"]
+    diff = float((poses - batch_cli_poses).abs().max())
+    log(f"config file through the batch CLI on {card}: solve {out['solve_s']:.3f} s (IPO "
+        f"{out['ipo_s']:.3f}, OIL {out['oil_s']:.3f}), P1 {out['p1'] * 1000:.3f} mm; poses "
+        f"bit-equal to phase 6's --config h36m run: {torch.equal(poses, batch_cli_poses)} "
+        f"(max |diff| {diff:.3g} m)")
+    if not torch.equal(poses, batch_cli_poses):
+        fail(f"config-file CLI: poses differ from phase 6's by up to {diff} m")
+    result["cli"] = {key: out[key] for key in ("kernel_1_launches", "solve_s", "ipo_s", "oil_s",
+                                               "eval_s", "p1", "p2")}
+
+    family = np.load(os.path.join(tbt.FIXTURE, "family.npz"))
+    gt, k, px = tbt.make_scenes(family, FIXTURE_SCENES)
+    by_preset = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, preset=presets.h36m(hidden_dim=256, embed_dim=128),
+        dtype="bf16", batch_bucket=32, device=dev)
+    by_file = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, config_path=QUICKSTART_CONFIG, dtype="bf16",
+        batch_bucket=32, device=dev)
+    if (by_file.model_cfg, by_file.zcfg) != (by_preset.model_cfg, by_preset.zcfg):
+        fail(f"config_path estimator: {by_file.model_cfg}, {by_file.zcfg} against the preset's "
+             f"{by_preset.model_cfg}, {by_preset.zcfg}")
+    want = by_preset.predict(px, k)
+    got, counts = counted(sk, split, "ZeDOEstimator(config_path=examples/quickstart_config.py)"
+                          ".predict", lambda: by_file.predict(px, k))
+    rows = 32 * len(by_file.clusters)
+    same = all(np.array_equal(got[key], want[key]) for key in want)
+    mm = tbt.best_mpjpe(got["poses"][np.arange(FIXTURE_SCENES), got["best"]][:, None], gt)
+    log(f"config_path estimator (hidden {by_file.model_cfg.hidden_dim}, embed "
+        f"{by_file.model_cfg.embed_dim}, {by_file.zcfg.oil.iterations} OIL steps): kernel #1's "
+        f"launches by rows {sk.row_launches}; every output bit-equal to the preset estimator's: "
+        f"{same}; served MPJPE {mm:.3f} mm")
+    if counts != {"fused_score_forward": 1000, "fused_score_forward_split": 0} \
+            or sk.row_launches != {rows: 1000} or not same:
+        fail(f"config_path estimator: launches {counts}, rows {sk.row_launches}, equal {same}")
+    result["serving"] = {"launches": counts["fused_score_forward"],
+                         "row_launches": dict(sk.row_launches), "mpjpe_mm": mm}
+
+    cfg, params, _ = tbt.load_fixture(dev)
+    est = by_preset.with_schedule(GENERIC_OIL, ipo_iterations=GENERIC_IPO)
+    sampler = PCSampler(sde=est.sde, corrector="langevin", probability_flow=True,
+                        eps=est.sampler.eps)
+    zcfg = dataclasses.replace(est.zcfg, oil=dataclasses.replace(est.zcfg.oil,
+                                                                 track_reproj=True))
+    cond2d = torch.as_tensor(px[:GENERIC_N], device=dev)
+    kk = torch.as_tensor(k[:GENERIC_N], device=dev)
+    cluster = torch.as_tensor(by_preset.clusters[0], device=dev)
+
+    def solve(seed, weight=None):
+        return pipeline.solve_one_hypothesis(
+            params, cfg, est.sde, sampler, zcfg, cluster, cond2d, None, kk,
+            generator=torch.Generator(dev).manual_seed(seed), reproj_weight=weight)
+
+    with torch.no_grad():
+        (a, b, c), counts = counted(sk, split, "solve_one_hypothesis, Langevin corrector",
+                                    lambda: (solve(1), solve(1), solve(2)))
+        uniform = solve(1, torch.full((GENERIC_N,), 1.0 / GENERIC_N, device=dev))
+    seeds_differ = float((a.pose - c.pose).abs().max())
+    trace_err = float((uniform.reproj_px - a.reproj_px).abs().max())
+    scale = max(1.0, float(a.reproj_px.abs().max()))
+    log(f"generic OIL path ({GENERIC_N} poses, {GENERIC_IPO} IPO / {GENERIC_OIL} OIL steps, "
+        f"Langevin): seed 1 twice bit-equal: {torch.equal(a.pose, b.pose)}; seeds 1 and 2 "
+        f"differ by up to {seeds_differ:.3g} m; uniform reproj_weight against the unweighted "
+        f"trace {trace_err:.3g} px (trace {float(a.reproj_px[0, 0]):.3f} -> "
+        f"{float(a.reproj_px[0, -1]):.3f} px; tolerance {TRACE_RTOL} x {scale:.3g}); launches "
+        f"{counts}")
+    if not torch.equal(a.pose, b.pose) or not seeds_differ > 0 \
+            or not trace_err <= TRACE_RTOL * scale or any(counts.values()) \
+            or not torch.isfinite(a.pose).all():
+        fail(f"generic path: same seed equal {torch.equal(a.pose, b.pose)}, seeds differ by "
+             f"{seeds_differ}, trace {trace_err}, launches {counts}")
+    result["generic"] = {"seeds_max_diff_m": seeds_differ, "uniform_weight_trace_err_px":
+                         trace_err}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2031,7 +2160,8 @@ def main() -> int:
     log(f"request wall-clock {walls} s on {card}; kernel time (launches x kernel ms) "
         f"{kernel_share:.3f} of it, IPO {ipo_s * len(walls) / sum(walls):.3f}")
     t0 = time.perf_counter()
-    batch_cli = phase_batch_cli(torch, sk, split, tsm, tbt, opt_main, inference, card)
+    batch_cli, batch_cli_poses = phase_batch_cli(torch, sk, split, tsm, tbt, opt_main,
+                                                 inference, card)
     entry["launches_batch_cli"] = batch_cli["kernel_1_launches"]
     log(f"phase batch CLI: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2064,6 +2194,13 @@ def main() -> int:
     entry["serving_shapes"] = rest.pop("kernel")
     rest["seconds"] = time.perf_counter() - t0
     log(f"phase rest of the surface: {rest['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    config_files = phase_config_files(torch, sk, split, tsm, tbt, presets, ZeDOEstimator,
+                                      opt_main, batch_cli_poses, card, dev)
+    entry["launches_config_files"] = {"cli": config_files["cli"]["kernel_1_launches"],
+                                      "serving": config_files["serving"]["launches"]}
+    config_files["seconds"] = time.perf_counter() - t0
+    log(f"phase config files: {config_files['seconds']:.1f} s")
     for e in (entry, entry_split):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
@@ -2073,6 +2210,7 @@ def main() -> int:
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
                       "sampling": sampling, "multigpu": multigpu, "rest": rest,
+                      "config_files": config_files,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

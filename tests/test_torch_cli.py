@@ -267,12 +267,18 @@ def test_trained_fixture_through_both_clis(hypo, tmp_path, capsys):
 
 
 def test_config_file_paths_and_cli_errors(tmp_path):
-    pw3d = os.path.join(REPO, "configs", "optim", "concat_pose_optimization_pw3d.py")
-    assert topt.load_config(pw3d) == presets.optim_config("3dpw")
-    for bad in ("mini", os.path.join(REPO, "configs", "optim",
-                                     "concat_pose_optimization_mini.py"), "cfg_small.py"):
-        with pytest.raises(ValueError, match="h36m, 3dhp, 3dpw, ski, wild"):
-            topt.load_config(bad)
+    # a path is read as JAX reads the file: every key of it, the preset's
+    # restated keys among them
+    for name, suffix in (("3dpw", "pw3d"), ("mini", "mini")):
+        module = f"configs.optim.concat_pose_optimization_{suffix}"
+        flat = _flat(topt.load_config(os.path.join(REPO, *module.split(".")) + ".py"))
+        assert flat == _flat(importlib.import_module(module).get_config().to_dict())
+        assert all(flat[k] == v for k, v in _flat(presets.optim_config(name)).items()
+                   if k.split(".")[-1] not in DIMS)
+    with pytest.raises(FileNotFoundError, match="cfg_small.py"):
+        topt.load_config("cfg_small.py")
+    with pytest.raises(ValueError, match="h36m, 3dhp, 3dpw, ski, wild"):
+        topt.load_config("mini")
     with pytest.raises(AssertionError, match="batch: 23, dataset len: 24"):
         topt.main(_argv("--override", "ZeDO.batch=23"))
     two = np.load(os.path.join(FIXTURE, "clusters", "h36m_cluster2.npy"))

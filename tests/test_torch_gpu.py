@@ -301,3 +301,37 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
                                        msg=name)
         else:
             assert torch.equal(p, before), name
+
+
+@pytest.mark.gpu
+def test_config_file_estimator_launches_the_kernel(cuda_device):
+    """ZeDOEstimator from examples/quickstart_config.py (the stock H36M file
+    at the trained fixture's widths) on the card: bf16 serving launches
+    kernel #1 on every OIL forward and returns the bits of the estimator
+    built from the preset at the same widths."""
+    import os
+
+    import numpy as np
+
+    from zedo_tpu_torch import bench_trained as tbt
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.serving import ZeDOEstimator
+
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "examples", "quickstart_config.py")
+    gt, k, px = tbt.make_scenes(np.load(os.path.join(tbt.FIXTURE, "family.npz")), 8)
+    by_file = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, config_path=config, dtype="bf16", batch_bucket=8,
+        device=cuda_device).low_latency()
+    by_preset = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, preset=presets.h36m(hidden_dim=256, embed_dim=128),
+        dtype="bf16", batch_bucket=8, device=cuda_device).low_latency()
+    assert by_file.model_cfg == by_preset.model_cfg and by_file.model_cfg.hidden_dim == 256
+    tsk.reset_launch_counts()
+    got = by_file.predict(px, k)
+    assert tsk.launch_counts["fused_score_forward"] == by_file.zcfg.oil.iterations == 200
+    assert tsk.row_launches == {8 * len(by_file.clusters): 200}
+    want = by_preset.predict(px, k)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert np.isfinite(got["poses"]).all()

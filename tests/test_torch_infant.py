@@ -360,12 +360,19 @@ def test_cli_matches_jax(dataset, kind, tmp_path, monkeypatch, capsys):
 
 def test_cli_errors(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    for bad in ("h36m", os.path.join(REPO, "configs", "optim",
-                                      "concat_pose_optimization_h36m.py")):
-        with pytest.raises(ValueError, match=r"mini, syrip"):
-            tcli.main(["--config", bad, "--device", "cpu"])
+    with pytest.raises(ValueError, match=r"mini, syrip"):
+        tcli.main(["--config", "h36m", "--device", "cpu"])
+    # an adult file is read, as the JAX CLI reads it, and its dataset refused
+    # by the infant readers as there
+    with pytest.raises(ValueError, match="h36m"):
+        tcli.main(["--config", os.path.join(REPO, "configs", "optim",
+                                            "concat_pose_optimization_h36m.py"),
+                   "--device", "cpu"])
     path = os.path.join(REPO, "configs", "optim", "concat_pose_optimization_syrip.py")
-    assert tcli.load_config(path, tcli.CONFIG_FILES) == presets.optim_config("syrip")
+    flat = _flat(tcli.load_config(path, tcli.PRESETS))
+    assert flat == _flat(jax_config("syrip").to_dict())
+    assert all(flat[k] == v for k, v in _flat(presets.optim_config("syrip")).items()
+               if k.split(".")[-1] not in ("hidden_dim", "embed_dim", "n_blocks"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcli.main(["--config", "mini"])

@@ -396,6 +396,14 @@ def test_serving_config_names_and_refusals():
         config=os.path.join("configs", "optim", "concat_pose_optimization_pw3d.py"))
     assert by_path.model_cfg.hidden_dim == 1024
     assert by_path.zcfg.ipo.t_norm == presets.optim_config("3dpw").ZeDO.IPO_T == 8
+    # config_path, JAX's name: any config file, its widths and schedule
+    by_file = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, device="cpu", dtype="fp32",
+        config_path=os.path.join(REPO, "examples", "quickstart_config.py"))
+    assert (by_file.model_cfg, by_file.zcfg) == (est.model_cfg, est.zcfg)
+    with pytest.raises(ValueError, match="not both"):
+        ZeDOEstimator.from_torch_checkpoint(tbt.CHECKPOINT, tbt.CLUSTERS, config="h36m",
+                                            config_path="h36m", device="cpu")
     with pytest.raises(ValueError, match="give a preset"):
         ZeDOEstimator.from_torch_checkpoint(tbt.CHECKPOINT, tbt.CLUSTERS, config="nope",
                                             device="cpu")

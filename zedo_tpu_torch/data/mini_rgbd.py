@@ -122,10 +122,17 @@ class mini_rgbd(PoseDataset):  # noqa: N801 — reference class name
             return data_2d, data_3d, k, np.array([0, 1])
         return data_2d, data_3d, k
 
+    def save_action(self, action):
+        """Attach per-sample action labels, one per pose."""
+        self.action = action
+        assert len(self.db_3d) == len(self.action)
+        return self.action
+
     def eval_multi(self, preds, protocol2=False, print_verbose=False,
-                   sample_interval=None, valid_ind=None):
+                   sample_interval=None, valid_ind=None, sample=None, mask_tok=None):
         """Mean MPJPE; with 12 joints, prediction and GT are reduced to the
-        joints [1:7] + [11] BEFORE alignment, as the reference does."""
+        joints [1:7] + [11] BEFORE alignment, as the reference does.
+        `sample` and `mask_tok` are accepted and unused, as in JAX."""
         print("eval multi-hypothesis...")
         gt = self.db_3d
         if sample_interval is not None:

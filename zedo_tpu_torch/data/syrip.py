@@ -122,9 +122,10 @@ class syrip(PoseDataset):  # noqa: N801 — reference class name
         return len(self.db_3d) * self.rep
 
     def eval_multi(self, preds, protocol2=False, print_verbose=False,
-                   sample_interval=None, valid_ind=None):
+                   sample_interval=None, valid_ind=None, sample=None, mask_tok=None):
         """Mean MPJPE on all 12 joints; the GT is used as stored, NOT
-        re-root-centred (the reader pelvis-centred it)."""
+        re-root-centred (the reader pelvis-centred it). `sample` and
+        `mask_tok` are accepted and unused, as in JAX."""
         print("eval multi-hypothesis...")
         gt = self.db_3d
         if sample_interval is not None:

@@ -133,11 +133,14 @@ class VPSDE(SDE):
     def alphas(self, like: torch.Tensor) -> torch.Tensor:
         return 1.0 - self.discrete_betas(like)
 
+    def alphas_cumprod(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.cumprod(self.alphas(like), 0)
+
     def sqrt_alphas_cumprod(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.sqrt(torch.cumprod(self.alphas(like), 0))
+        return torch.sqrt(self.alphas_cumprod(like))
 
     def sqrt_1m_alphas_cumprod(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.sqrt(1.0 - torch.cumprod(self.alphas(like), 0))
+        return torch.sqrt(1.0 - self.alphas_cumprod(like))
 
     def sde(self, x, t):
         beta_t = self.beta_min + t * (self.beta_max - self.beta_min)

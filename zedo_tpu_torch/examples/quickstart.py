@@ -15,18 +15,21 @@ in the reference's .pth layout), so it needs no dataset:
 The default schedule is 200 IPO / 300 OIL steps, re-discretized (the SDE's
 step count set to the OIL steps); --full runs the published 500 / 1000.
 MPJPE is the best hypothesis's, root-centred (bench_trained.best_mpjpe).
-Port of examples/quickstart.py; presets.h36m(hidden_dim=256, embed_dim=128,
-n_blocks=2) takes the place of examples/quickstart_config.py.
+Port of examples/quickstart.py: the estimator reads the same wrapper
+config, examples/quickstart_config.py (the stock H36M file at the
+fixture's widths), as JAX's quickstart does.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
-from zedo_tpu_torch import bench_trained, presets
+from zedo_tpu_torch import bench_trained
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.serving import ZeDOEstimator
@@ -36,6 +39,8 @@ from zedo_tpu_torch.zeroshot import oil as oil_lib
 from zedo_tpu_torch.zeroshot import pipeline
 
 N_SCENES, HYPO, SERVE_POSES = 24, 2, 8
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CONFIG = os.path.join(REPO, "examples", "quickstart_config.py")
 
 
 def main(argv=None) -> dict:
@@ -43,6 +48,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--full", action="store_true", help="the published 500 / 1000 schedule")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if REPO not in sys.path:  # the config file imports the repository's configs
+        sys.path.insert(0, REPO)
     dev = resolve_device(args.device)
     ipo_iters, oil_iters = (500, 1000) if args.full else (200, 300)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -81,9 +88,7 @@ def main(argv=None) -> dict:
     # ---- 2. serving ----------------------------------------------------
     # load once, predict many times
     est = ZeDOEstimator.from_torch_checkpoint(
-        bench_trained.CHECKPOINT, bench_trained.CLUSTERS,
-        preset=presets.h36m(hidden_dim=int(family["hidden"]), embed_dim=int(family["embed"]),
-                            n_blocks=int(family["n_blocks"])),
+        bench_trained.CHECKPOINT, bench_trained.CLUSTERS, config_path=CONFIG,
         dtype="fp32", batch_bucket=32, device=dev)
     fast = est.low_latency()  # OIL 200 (re-discretized) / IPO 100
     t0 = time.perf_counter()
@@ -98,12 +103,12 @@ def main(argv=None) -> dict:
     # ---- 3. the CLI ----------------------------------------------------
     device_flag = "" if dev.type == "cuda" else f" --device {dev.type}"
     print("3. the same solve through the port's batch CLI:\n"
-          f"   python -m zedo_tpu_torch.run.opt_main --config h36m{device_flag} \\\n"
+          "   python -m zedo_tpu_torch.run.opt_main --config examples/quickstart_config.py"
+          f"{device_flag} \\\n"
           "     --ckpt_dir tests/fixtures/trained/checkpoint "
           "--ckpt_name checkpoint_trained.pth \\\n"
           "     --cluster_dir tests/fixtures/trained/clusters "
           "--data_dir tests/fixtures/trained/data --gt --hypo 2 \\\n"
-          "     --override model.hidden_dim=256 --override model.embed_dim=128 \\\n"
           "     --override ZeDO.sample=1 --override ZeDO.batch=24\n"
           "   (training: python -m zedo_tpu_torch.run.train_pose_mini --help; "
           "benchmark: python -m zedo_tpu_torch.bench)", flush=True)

@@ -103,10 +103,10 @@ def _leave() -> None:
         dist.destroy_process_group()
 
 
-def say(mesh: Optional["Mesh"]):
-    """print on the mesh's first rank (or without a mesh), nothing on the
-    others: the CLIs' results are printed once."""
-    return print if mesh is None or mesh.is_main else (lambda *a, **k: None)
+def say(mesh: Optional["Mesh"], logger_print=print):
+    """`logger_print` on the mesh's first rank (or without a mesh), nothing
+    on the others: the CLIs' results are printed once."""
+    return logger_print if mesh is None or mesh.is_main else (lambda *a, **k: None)
 
 
 class Mesh:

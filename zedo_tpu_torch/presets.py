@@ -1,8 +1,10 @@
-"""The shipped configurations, without ml_collections.
+"""The shipped configurations, and config files read without ml_collections.
 
-`configs/optim/*.py` build ml_collections configs, which the port does not
-depend on. `optim_config(name)` restates, as a plain nested `Config`, the
-keys of configs/optim/concat_pose_optimization_<name>.py (through
+`configs/optim/*.py` build ml_collections configs. `load_config(path)` runs
+any such file, as the JAX package's CLIs and serving do, with a stand-in
+`ml_collections` whose ConfigDict is `Config`, so the port never imports
+ml_collections. `optim_config(name)` restates, as a plain nested `Config`,
+the keys of configs/optim/concat_pose_optimization_<name>.py (through
 configs/optim/_base.py and configs/default_pose_gen_configs.py, and for the
 infant sets configs/default_mini_configs.py) that the CLIs,
 `make_mlp_config`, `build_sde`, `get_sampling_fn`, `ZeDOConfig.from_config`,
@@ -17,9 +19,13 @@ sizes are restated.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
-from pathlib import Path
+import importlib.util
+import os
+import sys
+import types
 
 from zedo_tpu_torch.diffusion.sampling import PCSampler, get_sampling_fn
 from zedo_tpu_torch.diffusion.sde import SDE, build_sde
@@ -30,8 +36,23 @@ from zedo_tpu_torch.zeroshot.pipeline import ZeDOConfig
 
 class Config(dict):
     """A nested dict read by key or by attribute: the part of
-    ml_collections.ConfigDict that the entry points and `apply_overrides`
-    use."""
+    ml_collections.ConfigDict that the config files, the entry points and
+    `apply_overrides` use. Values of `initial` and `kwargs` that have
+    `.items()` become Configs, recursively."""
+
+    def __init__(self, initial=(), /, **kwargs):
+        super().__init__()
+        for key, value in dict(initial, **kwargs).items():
+            self[key] = Config(value) if hasattr(value, "items") else value
+
+    @contextlib.contextmanager
+    def unlocked(self):
+        """A no-op: a Config is never locked."""
+        yield self
+
+    def lock(self):
+        """A no-op: a Config is never locked."""
+        return self
 
     def __getattr__(self, name):
         try:
@@ -41,10 +62,6 @@ class Config(dict):
 
     def __setattr__(self, name, value):
         self[name] = value
-
-
-def _config(tree: dict) -> Config:
-    return Config({k: _config(v) if isinstance(v, dict) else v for k, v in tree.items()})
 
 
 _ALL_17 = list(range(17))
@@ -84,7 +101,7 @@ def optim_config(name: str) -> Config:
     else:
         dataset = {"TRAIN_DATASET": "h36m", "TEST_DATASET": "h36m", "NUM_JOINT": 17}
         train_batch, eval_batch = 50000, 10000
-    return _config({
+    return Config({
         "OUTPUT_DIR": "./output",
         "seed": 42,
         "DATASET": dataset,
@@ -110,25 +127,49 @@ def optim_config(name: str) -> Config:
     })
 
 
-# configs/optim/concat_pose_optimization_<suffix>.py -> preset
-CONFIG_FILES = {"h36m": "h36m", "3dhp": "3dhp", "pw3d": "3dpw", "ski": "ski", "wild": "wild"}
-_CONFIG_PREFIX = "concat_pose_optimization_"
+# the presets run.opt_main, run.inference and the serving estimator take
+EVAL_PRESETS = ("h36m", "3dhp", "3dpw", "ski", "wild")
+_STAND_IN = ("configs", "ml_collections")
 
 
-def load_config(arg: str, files: dict = CONFIG_FILES) -> Config:
-    """A preset by name, or by the path of the configs/optim file it
-    restates, as the CLIs' --config takes it; `files` maps the files'
-    suffixes to the presets a caller takes."""
-    names = tuple(files.values())
+def read_config_file(path: str) -> Config:
+    """Run the config file at `path` and return its get_config() as a
+    Config, as the JAX package's CLIs and serving read it. While the file
+    runs, `ml_collections` is a stand-in whose ConfigDict is Config; the
+    `configs` and `ml_collections` modules loaded before are set aside and
+    put back after, those the run loaded are dropped, and sys.path is
+    restored (the stock files put the repository's root on it)."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"config file {path!r} not found")
+    mine = [name for name in sys.modules if name.split(".")[0] in _STAND_IN]
+    stash = {name: sys.modules.pop(name) for name in mine}
+    path_before = list(sys.path)
+    stand_in = types.ModuleType("ml_collections")
+    stand_in.ConfigDict = Config
+    sys.modules["ml_collections"] = stand_in
+    try:
+        spec = importlib.util.spec_from_file_location("zedo_tpu_torch_config_file", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        config = module.get_config()
+    finally:
+        for name in [name for name in sys.modules if name.split(".")[0] in _STAND_IN]:
+            del sys.modules[name]
+        sys.modules.update(stash)
+        sys.path[:] = path_before
+    return Config(config)
+
+
+def load_config(arg: str, names: tuple = EVAL_PRESETS) -> Config:
+    """The configuration a CLI's --config names: the path of any config
+    file (.py), read as JAX's CLIs read it, or a preset by name; `names`
+    are the presets the caller takes."""
+    if arg.endswith(".py"):
+        return read_config_file(arg)
     if arg in names:
         return optim_config(arg)
-    stem = Path(arg).stem
-    suffix = stem[len(_CONFIG_PREFIX):] if stem.startswith(_CONFIG_PREFIX) else None
-    if not arg.endswith(".py") or suffix not in files:
-        raise ValueError(
-            f"--config {arg!r}: give a preset ({', '.join(names)}) or one of "
-            f"configs/optim/{_CONFIG_PREFIX}{{{','.join(files)}}}.py")
-    return optim_config(files[suffix])
+    raise ValueError(f"--config {arg!r}: give a preset ({', '.join(names)}) or the path of "
+                     "a config file (.py)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,8 +11,9 @@ it pads the poses to a multiple of N, solves them on a data mesh of the N
 ranks (pipeline.solve_sharded, rank r on cuda:r unless --device names a
 card) and unpads, as the JAX CLI does on its device mesh; rank 0 prints the
 tables and writes --save. Otherwise it solves on one device. `--config` takes
-a preset name (h36m, 3dhp, 3dpw, ski, wild) or the path of one of the files
-configs/optim/concat_pose_optimization_<name>.py it restates; `--override
+a preset name (h36m, 3dhp, 3dpw, ski, wild) or the path of any config file
+the JAX CLI takes (configs/optim/*.py, or a file wrapping one), which it
+runs for its get_config() (presets.read_config_file); `--override
 key.path=value` changes one key. `--dtype auto` is bf16 on the card, where
 every OIL forward runs the hand-written CUDA score kernel, and fp32 on the
 CPU. The evaluation runs in f32 on the solve's device. `--profile DIR`
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch import presets
-from zedo_tpu_torch.presets import CONFIG_FILES, load_config
+from zedo_tpu_torch.presets import EVAL_PRESETS, load_config
 from zedo_tpu_torch.data import DATASETS
 from zedo_tpu_torch.data.sharding import pad_batch
 from zedo_tpu_torch.models.nn import tree_map
@@ -55,8 +56,8 @@ CLUSTER_FILES = {
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     """The flags opt_main and inference share."""
     parser.add_argument("--config", required=True,
-                        help=f"a preset ({', '.join(CONFIG_FILES.values())}) or the path of "
-                             "configs/optim/concat_pose_optimization_<name>.py")
+                        help=f"a preset ({', '.join(EVAL_PRESETS)}) or the path of a config "
+                             "file, e.g. configs/optim/concat_pose_optimization_h36m.py")
     parser.add_argument("--ckpt_dir", type=str)
     parser.add_argument("--ckpt_name", type=str)
     parser.add_argument("--gt", action="store_true", default=False,
@@ -120,20 +121,23 @@ def cli_mesh(args):
     return default_mesh(device=device)
 
 
-def run_pipeline(config, args, dataset, stopwatch=None, mesh=None) -> torch.Tensor:
+def run_pipeline(config, args, dataset, logger_print=print, stopwatch=None,
+                 mesh=None) -> torch.Tensor:
     """Shared solve path of opt_main and inference: [N, S, j, 3] poses on
-    the device. stopwatch: an optional utils.profiling.Stopwatch that times
-    the phases "ipo", "oil" and "solve", each to the end of the device's work.
-    mesh: a data mesh (cli_mesh) to solve on; every rank gets all N poses."""
+    the device. logger_print: where the loading, dtype, trace and summary
+    lines go (on a mesh, from the first rank only). stopwatch: an optional
+    utils.profiling.Stopwatch that times the phases "ipo", "oil" and
+    "solve", each to the end of the device's work. mesh: a data mesh
+    (cli_mesh) to solve on; every rank gets all N poses."""
     dev = mesh.device if mesh is not None else resolve_device(getattr(args, "device", "cuda"))
-    log = say(mesh)
+    log = say(mesh, logger_print)
     preset = presets.from_optim_config(config)
     sample_poses = load_clusters(args.cluster_dir, config.data.dataset, args.hypo)
 
     ckpt_path = os.path.join(args.ckpt_dir, args.ckpt_name)
     log(f"loading model from {ckpt_path}")
     params, step = load_any_checkpoint(ckpt_path, preset.model_cfg, use_ema=args.ema,
-                                       device=dev)
+                                       log=log, device=dev)
     log(f"=> loaded checkpoint '{ckpt_path}' (step {step})")
     dtype = resolve_dtype(args.dtype, dev)
     if dtype != args.dtype:

@@ -13,8 +13,8 @@ of N and solves them on a data mesh of the ranks
 (infant.solve_infant_sharded; the trace averaged over the real frames),
 as the JAX CLI does on its device mesh; rank 0 prints and saves.
 Otherwise it solves on one device. `--config`
-takes a preset (mini, syrip) or the path of
-configs/optim/concat_pose_optimization_{mini,syrip}.py. The data stay
+takes a preset (mini, syrip) or the path of any config file the JAX CLI
+takes (e.g. configs/optim/concat_pose_optimization_mini.py). The data stay
 relative to the working directory (data/mini-rgbd, data/syrip), as in the
 JAX CLI. `--control` runs the ControlNet adapter and `--cond` the
 conditional model, conditioned on the normalized 2D keypoints; both take
@@ -47,15 +47,14 @@ from zedo_tpu_torch.utils.config import apply_overrides, resolve_device, resolve
 from zedo_tpu_torch.zeroshot import infant
 
 JOINT_DIM = 3
-# configs/optim/concat_pose_optimization_<suffix>.py -> preset
-CONFIG_FILES = {"mini": "mini", "syrip": "syrip"}
+PRESETS = ("mini", "syrip")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="valid score model")
     parser.add_argument("--config", required=True,
-                        help="a preset (mini, syrip) or the path of "
-                             "configs/optim/concat_pose_optimization_<name>.py")
+                        help="a preset (mini, syrip) or the path of a config file, "
+                             "e.g. configs/optim/concat_pose_optimization_mini.py")
     parser.add_argument("--ckpt_dir", type=str)
     parser.add_argument("--ckpt_name", type=str)
     parser.add_argument("--gt", action="store_true", default=False,
@@ -96,7 +95,7 @@ def main(argv=None) -> dict:
     mesh = cli_mesh(args)
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     log = say(mesh)
-    config = apply_overrides(load_config(args.config, CONFIG_FILES), args.override)
+    config = apply_overrides(load_config(args.config, PRESETS), args.override)
     n_joints = config.DATASET.NUM_JOINT
     train_dataset, test_dataset = get_datasets(config)
     preset = presets.from_optim_config(config)

@@ -11,8 +11,8 @@ surface (pose generation `gen`, 3D estimation `est`, 2D/3D completion
 
 Port of zedo_tpu/run/sample.py on one device, with the same flags plus
 `--device` (default cuda; `--device cpu` runs on the CPU). `--config` takes
-a preset or the path of configs/optim/concat_pose_optimization_<name>.py,
-as `run.opt_main` does. Samples are written as [N, j, 3] .npy.
+a preset (h36m, 3dhp, 3dpw, ski, wild, mini, syrip) or the path of any
+config file the JAX CLI takes. Samples are written as [N, j, 3] .npy.
 """
 from __future__ import annotations
 
@@ -30,20 +30,18 @@ from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.registry import make_mlp_config
-from zedo_tpu_torch.presets import CONFIG_FILES as OPT_MAIN_CONFIGS
-from zedo_tpu_torch.presets import load_config
+from zedo_tpu_torch.presets import OPTIM_PRESETS, load_config
 from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device
 
-CONFIG_FILES = {**OPT_MAIN_CONFIGS, "mini": "mini", "syrip": "syrip"}
 ODE_MAX_NFE = 20000 * 7  # the RK45 step budget
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="sample the pose prior")
     parser.add_argument("--config", required=True,
-                        help="a preset or the path of "
-                             "configs/optim/concat_pose_optimization_<name>.py")
+                        help="a preset or the path of a config file, "
+                             "e.g. configs/optim/concat_pose_optimization_h36m.py")
     parser.add_argument("--ckpt_dir", type=str)
     parser.add_argument("--ckpt_name", type=str)
     parser.add_argument("--task", type=str, default="gen",
@@ -80,7 +78,7 @@ def main(argv=None) -> dict:
     sampler's, to the end of the device's work), nfe (ode only)}."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    config = apply_overrides(load_config(args.config, CONFIG_FILES), args.override)
+    config = apply_overrides(load_config(args.config, OPTIM_PRESETS), args.override)
     n_joints = config.DATASET.get("NUM_JOINT", 17)
     model_cfg = make_mlp_config(config, n_joints=n_joints)
     params, _step = load_any_checkpoint(os.path.join(args.ckpt_dir, args.ckpt_name), model_cfg,

@@ -13,8 +13,8 @@ over all ranks when there are more than one), off, dp[N] or dp[N],tpM
 --mesh dp2,tp2 ...`): the batch is sharded over the data axis and, with
 tp, the ScoreMLP's hidden dim over the model axis (train.trainer); rank 0
 logs and writes the checkpoints. `--config`
-takes a preset (mini, syrip, h36m) or the path of
-configs/optim/concat_pose_optimization_<name>.py; `--override
+takes a preset (mini, syrip, h36m) or the path of any config file the JAX
+CLI takes (e.g. configs/optim/concat_pose_optimization_mini.py); `--override
 data.dataset=concate` trains on MINI-RGBD and SyRIP together. The data stay
 relative to the working directory (data/mini-rgbd, data/syrip, data/h36m),
 the output under config.OUTPUT_DIR. Checkpoints are .pth files in the
@@ -46,14 +46,14 @@ from zedo_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from zedo_tpu_torch.utils.config import apply_overrides, resolve_device
 from zedo_tpu_torch.utils.generic import create_logger, quiet_logger
 
-CONFIG_FILES = {"h36m": "h36m", "mini": "mini", "syrip": "syrip"}
+PRESETS = ("h36m", "mini", "syrip")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="train score model")
     parser.add_argument("--config", required=True,
-                        help="a preset (mini, syrip, h36m) or the path of "
-                             "configs/optim/concat_pose_optimization_<name>.py")
+                        help="a preset (mini, syrip, h36m) or the path of a config file, "
+                             "e.g. configs/optim/concat_pose_optimization_mini.py")
     parser.add_argument("--restore_dir", "--restore-dir", type=str, default=None,
                         help="a training checkpoint (.pth) to resume from")
     parser.add_argument("--sample", type=int, help="sample trainset to reduce data")
@@ -138,7 +138,7 @@ def main(argv=None) -> dict:
     mesh = mesh_from_spec(args.mesh, device=args.device)
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     main_rank = mesh is None or mesh.is_main
-    config = apply_overrides(load_config(args.config, CONFIG_FILES), args.override)
+    config = apply_overrides(load_config(args.config, PRESETS), args.override)
     if mesh is not None and mesh.size > 1 and not args.log_name:
         # one output directory for all ranks: the first rank's time stamp
         args.log_name = collectives.broadcast_object(time.strftime("%Y-%m-%d-%H-%M"), mesh)

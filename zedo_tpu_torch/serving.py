@@ -4,7 +4,7 @@ Port of zedo_tpu/serving.py, on one device or on a mesh of ranks.
 
     est = ZeDOEstimator.from_torch_checkpoint(
         "checkpoint_1500.pth", "clusters/h36m_cluster5.npy",
-        config="configs/optim/concat_pose_optimization_h36m.py", dtype="bf16")
+        config_path="configs/optim/concat_pose_optimization_h36m.py", dtype="bf16")
     out = est.predict(kp2d, K)   # poses [N, S, 17, 3], best [N], ...
 
 On a mesh (`mesh=`, parallel/mesh.py) every rank calls `predict` with the
@@ -85,13 +85,16 @@ class ZeDOEstimator:
                               preset: Optional[presets.Preset] = None, config=None,
                               hypo: Optional[int] = None, dtype: str = "bf16",
                               use_ema: bool = False, batch_bucket: int = 256,
-                              device="cuda", mesh=None) -> "ZeDOEstimator":
+                              device="cuda", mesh=None,
+                              config_path: Optional[str] = None) -> "ZeDOEstimator":
         """preset: the serving configuration (default presets.h36m()); or
         config: a configuration as the CLIs' --config takes it (a preset
-        name such as "h36m", or the path of a configs/optim file it
-        restates) or a presets.Config, e.g. presets.optim_config("h36m")
-        with other model widths; give one of the two. hypo: keep the first
-        `hypo` clusters. dtype 'bf16' runs the score network in bf16 (the
+        name such as "h36m", or the path of any config file, which is run
+        for its get_config() as JAX's serving runs it) or a presets.Config,
+        e.g. presets.optim_config("h36m") with other model widths;
+        config_path: JAX's name of `config`. Give at most one of the
+        three; a file's model widths and schedule are the estimator's.
+        hypo: keep the first `hypo` clusters. dtype 'bf16' runs the score network in bf16 (the
         fused CUDA kernel on the card), 'fp32' in full f32. use_ema: the
         checkpoint's EMA shadow weights (the raw weights by default: the
         reference loads EMA at inference but never applies it). mesh: a
@@ -102,6 +105,10 @@ class ZeDOEstimator:
         size."""
         if dtype not in ("bf16", "fp32"):
             raise ValueError(f"dtype must be 'bf16' or 'fp32', got {dtype!r}")
+        if config_path is not None:
+            if config is not None:
+                raise ValueError("config_path is another name of config: give one, not both")
+            config = config_path
         if preset is not None and config is not None:
             raise ValueError("give a preset or a config, not both")
         if config is not None:

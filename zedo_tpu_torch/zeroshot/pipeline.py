@@ -115,11 +115,14 @@ def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
                          sde: SDE, sampler: PCSampler, cfg: ZeDOConfig,
                          cluster_pose: torch.Tensor, cond2d: torch.Tensor,
                          conf: Optional[torch.Tensor], k: torch.Tensor,
-                         model_apply=None) -> OILResult:
-    """One hypothesis [j, 3] over the full batch: OILResult of [N, ...]."""
+                         model_apply=None, generator=None,
+                         reproj_weight=None) -> OILResult:
+    """One hypothesis [j, 3] over the full batch: OILResult of [N, ...].
+    generator: the noise of the generic OIL path; reproj_weight: optional
+    [N] per-sample weights of the trace, summing to 1."""
     return _solve_folded(params, model_cfg, sde, sampler, cfg,
                          torch.as_tensor(cluster_pose)[None], cond2d, conf, k,
-                         model_apply)
+                         model_apply, generator=generator, reproj_weight=reproj_weight)
 
 
 def solve(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
