@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both kernel libraries from zedo_tpu_torch/csrc, one nvcc each,
-     started together; registers and spills of their kernels, kernel #1's
+  2. build: the three kernel libraries from zedo_tpu_torch/csrc (kernel #1,
+     kernel #2, kernel #1's probe variants), one nvcc each, started
+     together; registers and spills of their kernels, kernel #1's
      resident blocks per SM, the HGMMA (wgmma) and UTMALDG (TMA load) opcodes
      in the SASS of both, and the instructions of each kernel (kernel #2's
      tile loop has to fit the instruction cache);
@@ -21,6 +22,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      12 and 24) in both modes; timed, with plain-version and bf16 torch.matmul-chain times, the
      wrapper's host time per forward (at 44,300 and at 129 rows), the
      roofline bound and the device-traffic floor of one launch per layer;
+ 3b. kernel #1's eight epilogue variants (phase_probe, score_kernel_probe:
+     tools/bench_kernel.py --probe's full, no_silu, no_gn, dense_only,
+     tanh_silu, bf16_silu, gn_vpu, gn_bcast_vpu), built from the repo's
+     sources into their own library: resident blocks, SASS (wgmma, TMA,
+     gn_bcast_vpu's mma.sync; the shipped library holds the full epilogue
+     only, with the probe library's full of the same instruction counts);
+     each against its plain version at 44,300 and 1,001 rows; each timed in
+     turns beside full (full, variant, variant, full) at 44,300 rows with its
+     bound share and full - variant; full within 5% of phase 3's kernel #1;
+     tools.bench_kernel --probe with its launch counts. No other phase
+     launches a probe kernel (their counts are held from here to the end);
   4. kernel #2 (fused_score_forward_split): its address function against a
      TMA load under the 128-byte swizzle, its transposed product alone
      against torch.matmul, its rows and ring stages against the Python
@@ -97,11 +109,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on both ranks. Its
      seconds are two ranks sharing one card, not a scaling number;
  13. the rest of the surface, each entry point with the launch counts set
-     to 0 before it and checked after it: kernel #1 against its plain
-     version at the serving shapes (the 256-pose bucket x 5 hypotheses,
-     1,280 rows, and the low-latency bucket 32 x 5, 160 rows; hidden 1024,
-     both GroupNorm modes), timed with its host time, bound and library
-     chain; tools.bench_serving --reps 3 (full schedule) and --oil 200 --ipo
+     to 0 before it and checked after it: kernels #1 and #2 against their
+     plain versions at the serving shapes (the 256-pose bucket x 5
+     hypotheses, 1,280 rows, and the low-latency bucket 32 x 5, 160 rows;
+     hidden 1024, both GroupNorm modes), timed in turns with their host
+     times, bound and library chain (nothing routes a request to kernel #2); tools.bench_serving --reps 3 (full schedule) and --oil 200 --ipo
      100 --bucket 32 --reps 3 (kernel #1 on every OIL forward of every
      request, at 1,280 and 160 rows as its wrapper records them, kernel #2
      never; p50/p95 per request size and score_reuse);
@@ -241,6 +253,20 @@ SPLIT_WIDTHS = ((256, 32), (512, 32), (768, 24), (1024, 32), (1024, 16))
 # as far from it and 6e-3 from each other): see check_groups_of_4
 GROUPS_OF_4_TOL = 1e-1
 BENCH_KERNEL_ITERS = 20
+# phase_probe: kernel #1's epilogue variants (score_kernel_probe), each held
+# against its plain version at KERNEL_TOL (the same bf16 operands, f32 sums in
+# another order), bf16_silu at twice that: it rounds to bf16 at three more
+# places a layer (xn, the sigmoid's steps, the product), where a sum's last
+# bit can flip a rounding; at the headline rows and a ragged 1,001; each
+# variant timed in turns with `full` (full, variant, variant, full): over a
+# second of back-to-back forwards the card's power rises (188 to 592 W on an
+# H100 at a 700 W limit) and a forward slows by up to 5%. `full`'s first
+# turn, timed as phase_kernel times kernel #1 (after the checks, 3 + 20
+# forwards), must land within PROBE_FULL_SHARE of it in the same run
+PROBE_ROWS = (HEADLINE_N * HEADLINE_S, 1001)
+PROBE_BF16_SILU_TOL = 2 * KERNEL_TOL
+PROBE_FULL_SHARE = 0.05
+PROBE_BENCH_ITERS = 50
 # Instructions of one kernel #2 instantiation. Its per-tile loop runs 80 times
 # a block: with the loop unrolled eight times (0.8 MB of code a kernel) the
 # forward ran at the pace of instruction fetch, 2.0 ms against 1.45 ms at some
@@ -334,6 +360,13 @@ def layer_traffic_ms(sk, x, packed, vecs, rows):
     return (between + ends) / PEAK_BYTES * 1e3
 
 
+def gpu_clocks() -> str:
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
 def host_us(torch, fn, reps=40):
     """Host time of one call of fn (which only enqueues), in microseconds:
     the stream is drained before, and the calls are few enough that the
@@ -360,7 +393,8 @@ def sass_counts(build, path):
 
 
 def phase_build(torch, build, sk, split):
-    """Build both libraries; their resources, occupancy and SASS."""
+    """Build the libraries; their resources, occupancy and the SASS of
+    kernels #1 and #2 (the probe library's: phase_probe)."""
     libs = build.build()
     for name, lib in libs.items():
         log(f"build {name}: {lib.build_seconds:.1f} s -> {lib.path}")
@@ -518,6 +552,157 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
         "rows_40000": {"rows": rows40, "ms": ms40, "bound_ms": bound40},
     }
     return entry, weights, x
+
+
+def operand_stream_bytes(sk, rows, hidden, io):
+    """Bytes of operand tiles that one forward of kernel #1's wgmma path
+    asks of L2, by count (nothing reads a counter): each 128 x 128 output
+    tile of a layer takes in the whole [128, K] row panel of A and [K, 128]
+    column panel of B, bf16. Layers (K, N): the bf16 copy of x (64 columns)
+    to hidden, four hidden to hidden, hidden to the 128 padded columns."""
+    row_tiles = math.ceil(rows / 128)
+    layers = [(sk.padded_input_columns(io), hidden)] + [(hidden, hidden)] * 4 + [(hidden, 128)]
+    return sum(row_tiles * (n // 128) * 2 * (128 * k * 2) for k, n in layers)
+
+
+def probe_sass(build, sk_path, probe_path):
+    """Instructions of each wgmma_layer instantiation of the shipped and the
+    probe library, by template arguments (MODE, GN, G, EPI)."""
+    import re
+
+    out = []
+    for path in (sk_path, probe_path):
+        by_args = {}
+        for name, n in build.count_sass_instructions(build.sass(path)).items():
+            m = re.search(r"wgmma_layerILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE", name)
+            if m:
+                by_args[tuple(int(g) for g in m.groups())] = n
+        out.append(by_args)
+    return out
+
+
+def phase_probe(torch, build, sk, probe, split, bench_kernel, weights, x, kernel_ms):
+    """Kernel #1's eight epilogue variants (csrc/score_mlp_probe.cu): built
+    from the repo's sources, each against its plain version at 44,300 and
+    1,001 rows, timed at 44,300 beside the bound; `full` against phase_kernel's
+    kernel #1; then tools.bench_kernel --probe with its launch counts.
+    Returns the `probe` entry of kernel #1's JSON."""
+    if any(probe.launch_counts.values()):
+        fail(f"a phase before phase_probe launched a probe kernel: {probe.launch_counts}")
+    libs = build.build(("score_mlp", "score_mlp_probe"))
+    lib = libs["score_mlp_probe"]
+    log(f"build score_mlp_probe: {lib.build_seconds:.1f} s (built beside the other libraries "
+        f"in phase 2, one nvcc each) -> {lib.path}")
+    res = build.resources(lib.ptxas)
+    regs = [v for k, v in res.items() if "wgmma_layer" in k]
+    if regs:
+        log(f"  score_mlp_probe wgmma_layer: {len(regs)} kernels, registers "
+            f"{min(r for r, _ in regs)}-{max(r for r, _ in regs)}, spill bytes "
+            f"{sum(sp for _, sp in regs)}")
+    plib = probe.load_library()
+    blocks = {v: plib.zedo_score_mlp_probe_blocks_per_sm(i)
+              for i, v in enumerate(probe.PROBE_VARIANTS)}
+    log(f"probe kernels' resident blocks per SM (residual layer): {blocks}")
+    if min(blocks.values()) < 1:
+        fail(f"a probe kernel does not fit an SM: {blocks}")
+    counts, _, _ = sass_counts(build, lib.path)
+    shipped, probed = probe_sass(build, libs["score_mlp"].path, lib.path)
+    log(f"SASS of libzedo_score_mlp_probe.so: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+        f"UTMALDG, {counts['HMMA']} HMMA (gn_bcast_vpu's mma.sync among them); "
+        f"{len(probed)} wgmma_layer kernels, instructions by (mode, GN, G, variant): {probed}")
+    if not counts["HGMMA"] or not counts["UTMALDG"] or not counts["HMMA"]:
+        fail(f"the probe library's SASS lacks wgmma, TMA or mma.sync: {counts}")
+    # the shipped library instantiates the FULL epilogue only, and the probe
+    # library's FULL is the same code: the same instructions
+    if not shipped or any(args[3] != 0 for args in shipped):
+        fail(f"libzedo_score_mlp.so's wgmma_layer kernels by (mode, GN, G, variant): {shipped}")
+    same = {args: (n, shipped.get(args)) for args, n in probed.items() if args[3] == 0}
+    log(f"FULL in the probe library against the shipped kernel, instructions: {same}")
+    if not same or any(a != b for a, b in same.values()):
+        fail(f"the probe library's FULL differs from the shipped kernel: {same}")
+
+    packed, vecs = weights["bf16"]
+    sk.reset_launch_counts()
+    split.reset_launch_counts()
+    gen = torch.Generator().manual_seed(12)
+    xs = {rows: x if rows == x.shape[0] else torch.randn(rows, x.shape[1], generator=gen)
+          .to(x.device) for rows in PROBE_ROWS}
+    out = {}
+    for name in probe.PROBE_VARIANTS:
+        tol = PROBE_BF16_SILU_TOL if name == "bf16_silu" else KERNEL_TOL
+        errs = []
+        for rows, xr in xs.items():
+            want = probe.fused_score_forward_probe_reference(xr, packed, vecs, name)
+            errs.append(check(torch, f"probe {name} vs plain", probe.fused_score_forward_probe(
+                xr, packed, vecs, name), want, rows, tol=tol))
+        out[name] = {"max_abs_err": max(errs), "tol": tol, "ms_turns": []}
+    rows = x.shape[0]
+
+    def timed(name):
+        return cuda_ms(torch, lambda: probe.fused_score_forward_probe(x, packed, vecs, name), 20, 3)
+
+    clocks = [gpu_clocks()]
+    for name in probe.PROBE_VARIANTS[1:]:
+        turns = [timed(v) for v in ("full", name, name, "full")]
+        out["full"]["ms_turns"] += [turns[0], turns[3]]
+        out[name]["ms_turns"] = turns[1:3]
+        out[name]["full_minus_ms"] = (turns[0] + turns[3] - turns[1] - turns[2]) / 2
+    clocks.append(gpu_clocks())
+    for name in probe.PROBE_VARIANTS:
+        out[name]["plain_ms"] = cuda_ms(
+            torch, lambda v=name: probe.fused_score_forward_probe_reference(x, packed, vecs, v),
+            3, 1)
+    if sk.launch_counts["fused_score_forward"] or split.launch_counts["fused_score_forward_split"]:
+        fail("the probe kernels' launches reached kernel #1's or kernel #2's counters")
+    bound_ms, bound_by, _ = bound(x, packed, vecs, rows)
+    traffic_ms = layer_traffic_ms(sk, x, packed, vecs, rows)
+    out["full"]["full_minus_ms"] = 0.0
+    for name in probe.PROBE_VARIANTS:
+        e = out[name]
+        e["ms"] = sum(e["ms_turns"]) / len(e["ms_turns"])
+        e.update(bound_share=bound_ms / e["ms"], traffic_floor_share=traffic_ms / e["ms"])
+        log(f"probe {name} {rows}x1024: {e['ms']:.4f} ms (turns "
+            f"{' / '.join(f'{t:.4f}' for t in e['ms_turns'])}), {e['bound_share']:.3f} of the "
+            f"{bound_by} bound {bound_ms:.4f} ms, {e['traffic_floor_share']:.3f} of the "
+            f"per-layer traffic floor {traffic_ms:.4f} ms; full - {name} = "
+            f"{e['full_minus_ms']:+.4f} ms (beside it in the same turns); plain version "
+            f"{e['plain_ms']:.3f} ms")
+    log(f"clocks.sm, power.draw, temperature.gpu before and after the timed turns: {clocks}")
+    first = out["full"]["ms_turns"][0]
+    log(f"probe full, first turn {first:.4f} ms (mean of its turns {out['full']['ms']:.4f}) "
+        f"against phase_kernel's kernel #1 {kernel_ms:.4f} ms ({first / kernel_ms - 1:+.2%}; "
+        f"limit {PROBE_FULL_SHARE:.0%})")
+    if not abs(first / kernel_ms - 1) <= PROBE_FULL_SHARE:
+        fail(f"probe full {first} ms is not within {PROBE_FULL_SHARE:.0%} of kernel #1's "
+             f"{kernel_ms} ms")
+    stream = operand_stream_bytes(sk, rows, packed.w_pre.shape[1], x.shape[1])
+    log(f"operand tiles kernel #1 asks of L2 a forward, by count: {stream / 1e9:.3f} GB, "
+        f"{stream / out['full']['ms'] / 1e9:.2f} TB/s at full's mean time, "
+        f"{stream / out['dense_only']['ms'] / 1e9:.2f} TB/s at dense_only's")
+
+    iters = PROBE_BENCH_ITERS
+    probe.reset_launch_counts()
+    res, counts = counted(sk, split, f"tools.bench_kernel --probe --iters {iters}",
+                          lambda: bench_kernel.main(["--probe", "--iters", str(iters)]))
+    # the kernel in both GroupNorm modes, then each variant: one warm-up step
+    # and `iters` timed ones
+    want = {"fused_score_forward": 2 * (iters + 1), "fused_score_forward_split": 0}
+    want_probe = {name: iters + 1 for name in probe.PROBE_VARIANTS}
+    log(f"tools.bench_kernel --probe: launches of the probe kernels {probe.launch_counts}")
+    if counts != want or probe.launch_counts != want_probe:
+        fail(f"bench_kernel --probe launches {counts}, {probe.launch_counts}; want {want}, "
+             f"{want_probe}")
+    if sk.path_launches != {"wgmma": 2 * (iters + 1), "wmma": 0}:
+        fail(f"bench_kernel --probe ran kernel #1's paths {sk.path_launches}")
+    for name in probe.PROBE_VARIANTS:
+        out[name]["launches"] = probe.launch_counts[name]
+        out[name]["bench_kernel_ms"] = res[f"probe {name}"]
+    return {"variants": out, "bound_ms": bound_ms, "bound_by": bound_by,
+            "layer_traffic_floor_ms": traffic_ms, "rows": rows, "build_s": lib.build_seconds,
+            "blocks_per_sm": blocks, "sass_instructions": {str(k): v for k, v in probed.items()},
+            "kernel_1_ms_same_run": kernel_ms, "full_first_turn_ms": first,
+            "launch_counts": dict(probe.launch_counts), "clocks": clocks,
+            "operand_stream_bytes": stream}
 
 
 def weight_stream_bytes(split, rows, hidden, io):
@@ -1855,9 +2040,11 @@ def phase_multigpu(torch, sk, tsm, card):
     return result
 
 
-def kernel_at_serving_shapes(torch, sk, tsm, library_forward, dev):
-    """Kernel #1 against its plain version at the rows of a serving bucket,
-    both GroupNorm modes; timed in the default mode."""
+def kernel_at_serving_shapes(torch, sk, split, tsm, library_forward, dev):
+    """Kernels #1 and #2 against their plain versions at the rows of a
+    serving bucket, both GroupNorm modes; timed in the default mode, in
+    turns (kernel #1, #2, #2, #1). Nothing routes a request to kernel #2:
+    its times here say whether one launch would pay at these rows."""
     weights = packed_weights(torch, sk, tsm, dev)
     packed, vecs = weights["bf16"]
     gen = torch.Generator().manual_seed(13)
@@ -1865,7 +2052,7 @@ def kernel_at_serving_shapes(torch, sk, tsm, library_forward, dev):
     for bucket in SERVING_BUCKETS:
         rows = bucket * SERVING_HYPO
         x = torch.randn(rows, 51, generator=gen).to(dev)
-        errs = []
+        errs, errs_split = [], []
         for gn, (p, v) in weights.items():
             sk.reset_launch_counts()
             errs.append(check(torch, f"kernel #1 gn={gn} at the serving bucket {bucket} x "
@@ -1873,21 +2060,42 @@ def kernel_at_serving_shapes(torch, sk, tsm, library_forward, dev):
                               sk.fused_score_forward_reference(x, p, v), rows))
             if sk.path_launches != {"wgmma": 1, "wmma": 0}:
                 fail(f"{rows} rows: paths {sk.path_launches}, want one launch on wgmma")
+            errs_split.append(check(
+                torch, f"kernel #2 gn={gn} at the serving bucket {bucket} x {SERVING_HYPO} vs "
+                f"plain", split.fused_score_forward_split(x, p, v),
+                split.fused_score_forward_split_reference(x, p, v), rows))
 
         def forward():
             return sk.fused_score_forward(x, packed, vecs)
 
-        ms = cuda_ms(torch, forward, 50, 5)
+        def forward_split():
+            return split.fused_score_forward_split(x, packed, vecs)
+
+        turns = [cuda_ms(torch, fn, 50, 5) for fn in (forward, forward_split, forward_split,
+                                                      forward)]
+        ms, ms_split = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         plain_ms = cuda_ms(torch, lambda: sk.fused_score_forward_reference(x, packed, vecs), 10, 2)
+        plain_split = cuda_ms(
+            torch, lambda: split.fused_score_forward_split_reference(x, packed, vecs), 10, 2)
         lib_ms = cuda_ms(torch, lambda: library_forward(x, packed, vecs), 20, 3)
         bound_ms, bound_by, _ = bound(x, packed, vecs, rows)
         host = host_us(torch, forward)
+        host_split = host_us(torch, forward_split)
         log(f"fused_score_forward at {rows} rows x 1024: kernel {ms:.4f} ms ({bound_ms / ms:.3f} "
             f"of the {bound_by} bound {bound_ms:.4f} ms), wrapper host time {host:.1f} us a "
             f"forward, plain version {plain_ms:.3f} ms, bf16 torch.matmul chain {lib_ms:.4f} ms")
+        log(f"fused_score_forward_split at {rows} rows x 1024: kernel {ms_split:.4f} ms "
+            f"({bound_ms / ms_split:.3f} of the bound; in turns, ms: kernel #1 {turns[0]:.4f} / "
+            f"{turns[3]:.4f}, kernel #2 {turns[1]:.4f} / {turns[2]:.4f}), wrapper host time "
+            f"{host_split:.1f} us a forward, plain version {plain_split:.3f} ms")
         out[f"rows_{rows}"] = {"rows": rows, "max_abs_err": max(errs), "ms": ms,
                                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "host_us_per_forward": host}
+                               "bound_by": bound_by, "host_us_per_forward": host,
+                               "kernel_2": {"max_abs_err": max(errs_split), "ms": ms_split,
+                                            "ms_turns": turns[1:3], "plain_ms": plain_split,
+                                            "bound_ms": bound_ms, "bound_by": bound_by,
+                                            "library_ms": lib_ms,
+                                            "host_us_per_forward": host_split}}
     return out
 
 
@@ -1900,8 +2108,8 @@ def phase_rest(torch, sk, split, tsm, tbt, card, dev):
                                       make_trained_fixture)
     from zedo_tpu_torch.utils.checkpoint import load_any_checkpoint
 
-    result = {"kernel": kernel_at_serving_shapes(torch, sk, tsm, bench_kernel.library_forward,
-                                                 dev)}
+    result = {"kernel": kernel_at_serving_shapes(torch, sk, split, tsm,
+                                                 bench_kernel.library_forward, dev)}
     launches = 0
     for bucket, extra in ((SERVING_BUCKETS[0], []),
                           (SERVING_BUCKETS[1], ["--oil", "200", "--ipo", "100"])):
@@ -2124,6 +2332,7 @@ def main() -> int:
         from zedo_tpu_torch.run import inference, opt_main, opt_main_infant
         from zedo_tpu_torch.ops.kernels import build
         from zedo_tpu_torch.ops.kernels import score_kernel as sk
+        from zedo_tpu_torch.ops.kernels import score_kernel_probe as probe
         from zedo_tpu_torch.ops.kernels import score_kernel_split as split
         from zedo_tpu_torch.serving import ZeDOEstimator
         from zedo_tpu_torch.tools import bench_kernel, validate_dtype
@@ -2146,6 +2355,12 @@ def main() -> int:
     t0 = time.perf_counter()
     entry, weights, x = phase_kernel(torch, sk, tsm, bench_kernel.library_forward, dev)
     log(f"phase kernel #1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry["probe"] = phase_probe(torch, build, sk, probe, split, bench_kernel, weights, x,
+                                 entry["ms"])
+    # no later phase may launch a probe kernel: these counts stay to the end
+    probe_launches = dict(probe.launch_counts)
+    log(f"phase probe: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     entry_split = phase_split(torch, sk, split, tsm, bench_kernel.step_ms,
                               bench_kernel.library_forward, weights, x)
@@ -2204,6 +2419,9 @@ def main() -> int:
     for e in (entry, entry_split):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
+    if probe.launch_counts != probe_launches:
+        fail(f"a phase after phase_probe launched a probe kernel: {probe.launch_counts}, "
+             f"{probe_launches} after phase_probe")
 
     entry["resident_blocks_per_sm"] = blocks_per_sm
     print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,

@@ -9,6 +9,7 @@ import torch
 
 from zedo_tpu_torch.models import score_mlp as tsm
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
+from zedo_tpu_torch.ops.kernels import score_kernel_probe as tprobe
 from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
 
 # max |kernel - plain|: the same bf16 operands, f32 sums in another order,
@@ -92,6 +93,35 @@ def test_wgmma_product_matches_matmul(cuda_device, m, k, n):
     got = tsk.wgmma_product(a, w)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", tprobe.PROBE_VARIANTS)
+def test_probe_kernel_matches_plain_version(cuda_device, variant):
+    """Kernel #1 with each of the eight epilogue variants (the probe library)
+    against its plain version at the published width, GroupNorm statistics
+    in bf16, on 4,096 and a ragged 1,001 rows: TOL, bf16_silu twice that (it
+    rounds to bf16 at three more places a layer). Its launches count under
+    the variant, never under kernel #1's counters; an f32-statistics pack
+    raises."""
+    packed, vecs = _packed(cuda_device, 1024, "bf16")
+    gen = torch.Generator().manual_seed(3)
+    tol = 2 * TOL if variant == "bf16_silu" else TOL
+    for n in (4096, 1001):
+        x = torch.randn(n, 51, generator=gen).to(cuda_device)
+        before = tprobe.launch_counts[variant], tsk.launch_counts["fused_score_forward"]
+        got = tprobe.fused_score_forward_probe(x, packed, vecs, variant)
+        torch.cuda.synchronize()
+        assert (tprobe.launch_counts[variant], tsk.launch_counts["fused_score_forward"]) == (
+            before[0] + 1, before[1])
+        want = tprobe.fused_score_forward_probe_reference(x, packed, vecs, variant)
+        assert got.shape == (n, 51) and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() < tol
+    assert tprobe.load_library().zedo_score_mlp_probe_blocks_per_sm(
+        tprobe.PROBE_VARIANTS.index(variant)) == 2
+    pf, vf = _packed(cuda_device, 1024, "f32")
+    with pytest.raises(ValueError, match="bf16 GroupNorm statistics"):
+        tprobe.fused_score_forward_probe(x, pf, vf, variant)
 
 
 @pytest.mark.gpu

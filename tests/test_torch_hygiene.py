@@ -17,6 +17,7 @@ from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.models import score_mlp as tsm
 from zedo_tpu_torch.models import score_mlp_cond as tcond
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
+from zedo_tpu_torch.ops.kernels import score_kernel_probe as tprobe
 from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
 from zedo_tpu_torch.run import opt_main_infant
 from zedo_tpu_torch.serving import ZeDOEstimator
@@ -52,7 +53,8 @@ def test_port_imports_no_jax_no_reference_package():
                  "diffusion.losses", "diffusion.ema", "diffusion.ode", "diffusion.guidance",
                  "train.trainer", "run.train_pose_mini", "run.sample", "tools.bench_train",
                  "data.concat", "models.registry", "tools.bench_serving", "tools.make_clusters",
-                 "tools.make_trained_fixture", "examples.quickstart", "utils.visualize"):
+                 "tools.make_trained_fixture", "examples.quickstart", "utils.visualize",
+                 "ops.kernels.score_kernel_probe"):
         assert f"zedo_tpu_torch.{name}" in out.stdout, name
 
 
@@ -104,7 +106,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_kernel_wrapper_never_falls_back():
     _no_cuda()
-    for module in (tsk, tsplit):
+    for module in (tsk, tsplit, tprobe):
         with pytest.raises(RuntimeError, match="CUDA device"):
             module.load_library()
     cfg = tsm.ScoreMLPConfig(hidden_dim=128, embed_dim=64)

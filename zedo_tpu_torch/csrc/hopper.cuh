@@ -36,6 +36,12 @@ __device__ __forceinline__ float silu(float x) {
   return x * (0.5f * t + 0.5f);
 }
 
+// the same with the precise tanhf (the wmma kernel's and the plain version's
+// form)
+__device__ __forceinline__ float silu_precise(float x) {
+  return x * (0.5f * tanhf(0.5f * x) + 0.5f);
+}
+
 // ---- the 128-byte swizzle -------------------------------------------------
 // Where the byte at `offset` of a tile of 128-byte rows lands under
 // CU_TENSOR_MAP_SWIZZLE_128B, both counted from the tile's 1024-byte-aligned
@@ -209,6 +215,22 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[16 x 8] += a[16 x 16] * b[16 x 8], bf16 operands, f32 sums, one warp
+// (mma.sync). Lane l holds a as four words of two bf16 (the lower half the
+// lower column): rows l/4 (a[0]) and l/4 + 8 (a[1]) at the columns 2(l%4),
+// 2(l%4) + 1, and the same rows 8 columns on (a[2], a[3]); b as two words:
+// rows 2(l%4), 2(l%4) + 1 (b0) and 8 rows on (b1) of column l/4; d rows l/4
+// (d[0], d[1]) and l/4 + 8 (d[2], d[3]) at the columns 2(l%4), 2(l%4) + 1.
+// The layout of a and d is that of 16 columns of a wgmma accumulator.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d[64 x 56] (+)= a[64 x 16] * b[16 x 56] with the operands the other way

@@ -3,7 +3,8 @@
 Each `.cu` source in `zedo_tpu_torch/csrc/` is compiled with `nvcc` for
 sm_90a into a shared library with a plain C interface, at first use, under
 `build/zedo_tpu_torch/<hash of csrc/>/` beside the package, and loaded with
-ctypes. The headers the sources share (`hopper.cuh`) are part of the hash.
+ctypes. The headers the sources share (`hopper.cuh`, `score_mlp.cuh`) are part
+of the hash.
 `build()` starts one nvcc for each library that is not built yet, all
 together, and waits for them. Without CUDA or nvcc it raises: there is no
 fallback.
@@ -24,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zedo_tpu_torch"
 # library name -> its source in csrc/
-SOURCES = {"score_mlp": "score_mlp.cu", "score_mlp_split": "score_mlp_split.cu"}
+SOURCES = {"score_mlp": "score_mlp.cu", "score_mlp_split": "score_mlp_split.cu",
+           "score_mlp_probe": "score_mlp_probe.cu"}
 
 
 class Library(NamedTuple):

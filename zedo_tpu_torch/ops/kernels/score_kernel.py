@@ -159,24 +159,27 @@ def dense(a, w, vec):
     return a.to(w.dtype).float() @ w.float() + vec[None]
 
 
-def gn(a, packed: PackedScoreWeights, layer: int):
-    """GroupNorm + SiLU of GroupNorm layer `layer` (0..4)."""
-    return _gn_silu(a, packed.ind, packed.bcast_scaled[layer], packed.gn_bias[layer][None])
+def gn(a, packed: PackedScoreWeights, layer: int, gn_silu=_gn_silu):
+    """GroupNorm + SiLU of GroupNorm layer `layer` (0..4); `gn_silu` takes
+    `_gn_silu`'s arguments (the probe variants replace it)."""
+    return gn_silu(a, packed.ind, packed.bcast_scaled[layer], packed.gn_bias[layer][None])
 
 
 def fused_score_forward_reference(x: torch.Tensor, packed: PackedScoreWeights,
-                                  vecs: torch.Tensor) -> torch.Tensor:
+                                  vecs: torch.Tensor, gn_silu=_gn_silu) -> torch.Tensor:
     """Plain PyTorch version of the fused forward: x [B, C] f32 (C <= io_pad,
     missing columns read as zero) -> [B, C] f32. Every product is taken on
-    operands rounded to the packed weight dtype, accumulated in f32."""
+    operands rounded to the packed weight dtype, accumulated in f32. Each
+    GroupNorm layer's epilogue is `gn_silu` (the TPU kernel's `_gn_silu`
+    unless a probe variant is given: score_kernel_probe)."""
     b, c = x.shape
     io_pad = packed.w_pre.shape[0]
     h = torch.nn.functional.pad(x.float(), (0, io_pad - c))
-    h = gn(dense(h, packed.w_pre, vecs[0]), packed, 0)
+    h = gn(dense(h, packed.w_pre, vecs[0]), packed, 0, gn_silu)
     for blk in range(2):
         l1, l2 = 1 + 2 * blk, 2 + 2 * blk
-        h1 = gn(dense(h, packed.w_b[2 * blk], vecs[l1]), packed, l1)
-        h2 = gn(dense(h1, packed.w_b[2 * blk + 1], vecs[l2]), packed, l2)
+        h1 = gn(dense(h, packed.w_b[2 * blk], vecs[l1]), packed, l1, gn_silu)
+        h2 = gn(dense(h1, packed.w_b[2 * blk + 1], vecs[l2]), packed, l2, gn_silu)
         h = h + h2
     out = dense(h, packed.w_post, packed.bias_post)
     return out[:, :c]

@@ -3,10 +3,9 @@ forward, on the card: ms per step at the production batch (N*S rows) over a
 dependency chain of steps, in both GroupNorm statistics modes.
 
     python -m zedo_tpu_torch.tools.bench_kernel [--rows 44300] [--iters 200]
-        [--split] [--device cuda]
+        [--split] [--probe] [--device cuda]
 
-Port of tools/bench_kernel.py (its kernel harness; the --probe variants,
-rejected TPU experiments, are not ported). Variants:
+Port of tools/bench_kernel.py. Variants:
   * kernel gn=bf16|f32: `fused_score_forward` (csrc/score_mlp.cu) on the
     path its width takes, the wgmma kernel at the published width;
   * with --split, split tile=56 gn=bf16|f32: `fused_score_forward_split`
@@ -15,6 +14,12 @@ rejected TPU experiments, are not ported). Variants:
   * library chain bf16: bf16 torch.matmul calls with GroupNorm and SiLU as
     torch ops, the same function (a yardstick, never used by the port);
   * unfused bf16: score_mlp.apply_with_temb on bf16 weights.
+With --probe, after the kernel's two modes, the decomposition probes of
+kernel #1 instead of the rest (score_kernel_probe: the kernel with each of
+eight epilogues, GroupNorm statistics in bf16, `pack_weights`' default),
+one `probe <name>: <ms> ms/step` line each in the TPU tool's order; then it
+returns, as the TPU tool does. A variant that does not build or launch
+raises.
 On the card each step is timed with CUDA events; on the CPU (--device cpu,
 the plain versions) with the host clock.
 """
@@ -27,6 +32,7 @@ import torch
 
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
+from zedo_tpu_torch.ops.kernels import score_kernel_probe as probe
 from zedo_tpu_torch.ops.kernels import score_kernel_split as split
 from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils.config import resolve_device
@@ -87,6 +93,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--split", action="store_true",
                     help="also time the split kernel and compare it with the kernel")
+    ap.add_argument("--probe", action="store_true",
+                    help="time kernel #1's eight epilogue variants and return")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -109,6 +117,16 @@ def main(argv=None) -> dict:
             results[f"split tile={split.tile_rows(cfg.hidden_dim)} gn={gn_name}"] = step_ms(
                 lambda h, p=p, v=vecs: split.fused_score_forward_split(h, p, v), x, args.iters)
     vecs = sk.step_vectors(packed["bf16"], temb).contiguous()
+    if args.probe:
+        for key, ms in results.items():
+            print(f"{key}: {ms:.3f} ms/step", flush=True)
+        for name in probe.PROBE_VARIANTS:
+            key = f"probe {name}"
+            results[key] = step_ms(
+                lambda h, v=name: probe.fused_score_forward_probe(h, packed["bf16"], vecs, v),
+                x, args.iters)
+            print(f"{key}: {results[key]:.3f} ms/step", flush=True)
+        return results
     results["library chain bf16"] = step_ms(
         lambda h: library_forward(h, packed["bf16"], vecs), x, args.iters)
     results["unfused bf16"] = step_ms(
