@@ -48,7 +48,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      50 hypotheses, a few requests, with the kernel's launches checked
      against the OIL steps, its GroupNorm mode against the default (bf16,
      JAX's default) and its path against wgmma; IPO alone; a profiled
-     request, from which the kernel's CUDA launches per forward are counted;
+     request, from which the kernel's CUDA launches per forward are counted
+     (predict and every later entry point solve through the compiled solve:
+     IPO and OIL steps replayed as CUDA graphs, kernel #1's forwards counted
+     from the replays);
+ 5b. the compiled solve against the eager one (phase_compiled), at the
+     published width: pipeline.solve_jit at 886 x 50 in turns with
+     pipeline.solve (eager, first call, replay, eager) and bench through it,
+     predict at the serving buckets (1,280 rows on the full schedule, 160 on
+     the low-latency one; eager and compiled requests in turns), the infant
+     solve at 2,000 x 20 on the plain prior and 2,000 x 1 on each adapter
+     (the generic path, with a generator), solve_sharded at world size 1
+     over NCCL: each bit-equal to the eager solve, with first-call (capture)
+     and replay seconds, IPO and OIL apart, kernel #1's launches a solve,
+     host dispatches a solve and the device's busy share (torch.profiler),
+     request p50 at each bucket;
   6. the batch CLI, each run with the launch counts set to 0 before it and
      checked after it: run.opt_main --config h36m --hypo 50 --gt
      --strict_batch --dtype auto on a synthetic H36M workspace of 886 poses
@@ -145,6 +159,7 @@ Imports torch, numpy and zedo_tpu_torch only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -272,6 +287,11 @@ PROBE_BENCH_ITERS = 50
 # forward ran at the pace of instruction fetch, 2.0 ms against 1.45 ms at some
 # 2,400 instructions.
 MAX_SPLIT_INSTRUCTIONS = 4000
+# phase_compiled: requests of each mode at each serving bucket, and the host
+# calls that dispatch device work (kernel launches and graph launches)
+COMPILED_REPS = 3
+HOST_DISPATCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                   "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 def fail(msg: str) -> None:
@@ -915,7 +935,8 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
     log(f"main path: {launches} kernel launches in {N_REQUESTS} requests "
         f"({per_request} per request), GroupNorm modes {by_mode}, paths {sk.path_launches}")
 
-    # where a request's time goes: IPO alone on the same folded rows
+    # where a request's time goes: IPO alone on the same folded rows, as the
+    # requests ran it (its compiled scan, captured by the first request)
     from zedo_tpu_torch.zeroshot.ipo import run_ipo
 
     s, n = clusters.shape[0], px.shape[0]
@@ -925,7 +946,7 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
     kk = torch.from_numpy(k).to(dev).repeat(s, 1, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_ipo(pose0, kp, kk, est.zcfg.ipo, n_groups=s)
+    run_ipo(pose0, kp, kk, est.zcfg.ipo, n_groups=s, compiled=True)
     torch.cuda.synchronize()
     ipo_s = time.perf_counter() - t0
     log(f"IPO alone ({est.zcfg.ipo.iterations} Adam steps on {s * n} rows): {ipo_s:.3f} s")
@@ -954,6 +975,302 @@ def phase_main_path(torch, sk, tsm, presets, ZeDOEstimator, build_inputs, dev):
     log(f"profiled request: {own} CUDA launches of kernel #1's library = {own // per_request} "
         f"per forward")
     return launches, walls, ipo_s, busy_s, own // per_request
+
+
+def timed(torch, fn):
+    """(fn(), host seconds from a synchronized start to the end of the
+    device's work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profiled(torch, fn):
+    """fn() under torch.profiler: (wall s, device busy s, host dispatches by
+    call): the kernel launches (cudaLaunchKernel, cuLaunchKernel and their
+    Ex forms) and graph launches that the host made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(torch, fn)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return wall, busy, {e.key: e.count for e in events if e.key in HOST_DISPATCHES}
+
+
+@contextlib.contextmanager
+def eager_solves():
+    """The entry points' compiled solves swapped for their eager oracles
+    (pipeline.solve_jit -> solve, infant.solve_infant_jit -> solve_infant):
+    an entry point's eager run, to hold its compiled run to."""
+    from zedo_tpu_torch.zeroshot import infant, pipeline
+
+    saved = pipeline.solve_jit, infant.solve_infant_jit
+    pipeline.solve_jit, infant.solve_infant_jit = pipeline.solve, infant.solve_infant
+    try:
+        yield
+    finally:
+        pipeline.solve_jit, infant.solve_infant_jit = saved
+
+
+def same_solve(torch, got, want) -> bool:
+    """Two SolveResults bit for bit (the trace too, where there is one)."""
+    if (got.reproj_px is None) != (want.reproj_px is None):
+        return False
+    return (torch.equal(got.poses, want.poses) and torch.equal(got.translations,
+                                                               want.translations)
+            and (got.reproj_px is None or torch.equal(got.reproj_px, want.reproj_px)))
+
+
+def dispatch_line(wall, busy, dispatches) -> str:
+    return (f"{sum(dispatches.values())} host dispatches ({dispatches}), device busy "
+            f"{busy:.3f} s of {wall:.3f} s = {busy / wall:.3f}")
+
+
+def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, dev):
+    """The compiled solve (pipeline.solve_jit, infant.solve_infant_jit: the
+    IPO and OIL steps captured as CUDA graphs and replayed) against the eager
+    solve that runs the same scan bodies in a Python loop, at the published
+    width with seeded weights: (a) 886 x 50 through pipeline, in turns
+    (eager, first call, replay, eager), each bit-equal to the first eager
+    run, then the compiled solve profiled; (b) bench (its first call
+    captures anew), its poses' checksum equal to the eager solve's; (c)
+    predict at the serving buckets (256 x 5 = 1,280 rows on the full
+    schedule, 32 x 5 = 160 on the low-latency one), eager and compiled
+    requests in turns, bit-equal, p50 of each, the compiled requests and the
+    low-latency eager one profiled; (d) the infant solve on MINI-RGBD-like
+    frames, 2,000 x 20 on the plain prior (kernel #1) and 2,000 x 1 on each
+    adapter (the generic path, its draws from the caller's generator, which
+    stands after the compiled solve where the eager one leaves it); (e)
+    solve_sharded at world size 1 over NCCL against (a)'s eager poses.
+    Kernel #1's launches are counted from the replays: 1000 a solve on the
+    kernel path, 0 on the generic path."""
+    from zedo_tpu_torch.data.base import normalize_data
+    from zedo_tpu_torch.models import control_mlp, score_mlp_cond
+    from zedo_tpu_torch.utils import compiled
+    from zedo_tpu_torch.utils.profiling import Stopwatch
+    from zedo_tpu_torch.zeroshot import infant, pipeline
+
+    parts = {}  # seconds of each part of the phase
+    t_part = time.perf_counter()
+    result = {"card": card, "part_s": parts}
+    preset = presets.h36m()
+    cfg = preset.model_cfg
+    params = to_bf16(torch, tsm.init_params(torch.Generator().manual_seed(0), cfg, device=dev))
+    px, conf, k, clusters = bench.build_inputs(HEADLINE_N, HEADLINE_S)
+    inputs = [torch.from_numpy(a).to(dev) for a in (clusters, px, conf, k)]
+    compiled.clear_cache()
+
+    def solve(fn, forwards, call, *args, **kw):
+        """(result, seconds, IPO s, OIL s) of one solve; its kernel #1
+        forwards checked."""
+        sw = Stopwatch()
+        sk.reset_launch_counts()
+        with torch.no_grad():
+            out, secs = timed(torch, lambda: call(fn, *args, stopwatch=sw, **kw))
+        if sk.launch_counts["fused_score_forward"] != forwards:
+            fail(f"compiled phase: {fn.__name__} launched kernel #1 "
+                 f"{sk.launch_counts['fused_score_forward']} times, want {forwards}")
+        return out, {"s": secs, "ipo_s": sw.totals["ipo"], "oil_s": sw.totals["oil"]}
+
+    def adult(fn, **kw):
+        return fn(params, cfg, preset.sde, preset.sampler, preset.zcfg, *inputs, **kw)
+
+    # (a) 886 x 50 in turns
+    runs = {"eager": [], "first": [], "replay": []}
+    outs = []
+    for mode in ("eager", "first", "replay", "eager"):
+        fn = pipeline.solve if mode == "eager" else pipeline.solve_jit
+        out, t = solve(fn, 1000, lambda f, **kw: adult(f, **kw))
+        runs[mode].append(t)
+        outs.append((mode, out))
+    want = outs[0][1]
+    for mode, out in outs[1:]:
+        if not same_solve(torch, out, want):
+            fail(f"compiled phase, {HEADLINE_N} x {HEADLINE_S}: the {mode} run is not "
+                 f"bit-equal to the eager solve (max |diff| "
+                 f"{(out.poses - want.poses).abs().max().item()})")
+    # the compiled solve profiled; the eager solve's dispatches are (c)'s
+    # low-latency eager request's at 5x its steps (a trace of its ~200,000
+    # events takes a minute to read)
+    with torch.no_grad():
+        prof = {"compiled": profiled(torch, lambda: adult(pipeline.solve_jit))}
+
+    def fmt(t):
+        return f"{t['s']:.3f} s (IPO {t['ipo_s']:.3f}, OIL {t['oil_s']:.3f})"
+
+    log(f"compiled solve {HEADLINE_N} x {HEADLINE_S} on {card}: eager "
+        f"{', '.join(fmt(t) for t in runs['eager'])}; solve_jit first call (warm-up and "
+        f"capture) {fmt(runs['first'][0])}, replay {fmt(runs['replay'][0])}; kernel #1 "
+        f"1000 forwards a solve, counted from the replays; bit-equal to the eager solve")
+    for mode, p in prof.items():
+        log(f"  profiled {mode} solve: {dispatch_line(*p)}")
+    result["h36m"] = {**runs, "bitwise": True,
+                      **{f"{mode}_profile": {"wall_s": p[0], "busy_s": p[1],
+                                             "dispatches": sum(p[2].values()),
+                                             "by_call": p[2]} for mode, p in prof.items()}}
+    parts["h36m"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) bench, its first call capturing anew
+    compiled.clear_cache()
+    headline, counts = counted(sk, split, f"bench --n {HEADLINE_N} --s {HEADLINE_S}",
+                               lambda: bench.main([]))
+    checksum = float(want.poses.cpu().sum())
+    extras = headline["extras"]
+    if counts != {"fused_score_forward": 2000, "fused_score_forward_split": 0} \
+            or extras["poses_checksum"] != checksum:
+        fail(f"bench through solve_jit: launches {counts}, poses checksum "
+             f"{extras['poses_checksum']} against the eager solve's {checksum}")
+    log(f"bench {HEADLINE_N} x {HEADLINE_S} through solve_jit on {card}: first call (warm-up "
+        f"and capture) {extras['compile_plus_first_run_s']} s, replay {headline['value']} s "
+        f"(IPO {extras['ipo_s']}, OIL {extras['oil_s']}); poses checksum {checksum!r} equal to "
+        f"the eager solve's")
+    result["bench"] = {"first_s": extras["compile_plus_first_run_s"], "replay_s": headline["value"],
+                       "ipo_s": extras["ipo_s"], "oil_s": extras["oil_s"]}
+    parts["bench"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) the serving buckets
+    result["serving"] = {}
+    for bucket, schedule in zip(SERVING_BUCKETS, ("full", "low_latency")):
+        est = ZeDOEstimator(params=params, model_cfg=cfg, sde=preset.sde, sampler=preset.sampler,
+                            zcfg=preset.zcfg, clusters=clusters[:SERVING_HYPO], device=dev,
+                            batch_bucket=bucket)
+        if schedule == "low_latency":
+            est = est.low_latency()
+        forwards = est.zcfg.oil.iterations
+
+        def predict():
+            return est.predict(px[:bucket], k[:bucket], confidence=conf[:bucket])
+
+        def request(eager):
+            sk.reset_launch_counts()
+            with contextlib.ExitStack() as stack:
+                if eager:
+                    stack.enter_context(eager_solves())
+                out, secs = timed(torch, predict)
+            if sk.launch_counts["fused_score_forward"] != forwards:
+                fail(f"serving bucket {bucket}: kernel #1 launched "
+                     f"{sk.launch_counts['fused_score_forward']} times, want {forwards}")
+            return out, secs
+
+        got, first = request(False)
+        eager_s, jit_s = [], []
+        for _ in range(COMPILED_REPS):
+            want_r, secs = request(True)
+            eager_s.append(secs)
+            got_r, secs = request(False)
+            jit_s.append(secs)
+            for key, value in want_r.items():
+                if not (np.array_equal(got[key], value) and np.array_equal(got_r[key], value)):
+                    fail(f"serving bucket {bucket} ({schedule}): compiled {key} not bit-equal "
+                         f"to the eager request's")
+        if schedule == "low_latency":
+            # the full schedule's eager request dispatches what (a)'s eager
+            # solve does; its profile alone takes a minute to read
+            with eager_solves():
+                prof_e = profiled(torch, predict)
+        prof_j = profiled(torch, predict)
+        rows = bucket * SERVING_HYPO
+        log(f"serving bucket {bucket} x {SERVING_HYPO} = {rows} rows, {schedule} schedule, on "
+            f"{card}: request p50 eager {np.median(eager_s) * 1e3:.1f} ms {eager_s}, compiled "
+            f"{np.median(jit_s) * 1e3:.1f} ms {jit_s} (first call, with capture, {first:.3f} "
+            f"s); bit-equal; kernel #1 {forwards} forwards a request")
+        if schedule == "low_latency":
+            log(f"  profiled eager request: {dispatch_line(*prof_e)}")
+        log(f"  profiled compiled request: {dispatch_line(*prof_j)}")
+        result["serving"][rows] = {
+            "schedule": schedule, "eager_s": eager_s, "compiled_s": jit_s, "first_s": first,
+            "p50_eager_s": float(np.median(eager_s)), "p50_compiled_s": float(np.median(jit_s)),
+            "compiled_dispatches": sum(prof_j[2].values()), "compiled_busy": prof_j[1] / prof_j[0]}
+        if schedule == "low_latency":
+            result["serving"][rows].update(eager_dispatches=sum(prof_e[2].values()),
+                                           eager_busy=prof_e[1] / prof_e[0])
+        parts[f"serving_{rows}"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    # (d) the infant solve: the plain prior and both adapters
+    mini = presets.from_optim_config(presets.optim_config("mini"))
+    mcfg = mini.model_cfg
+    zcfg = dataclasses.replace(mini.zcfg, oil=dataclasses.replace(mini.zcfg.oil,
+                                                                   track_reproj=True))
+    _, _, ipx, ik = infant_oil_inputs(torch, dev, MINI_FRAMES, 4)
+    cam = infant_scenes(np.random.RandomState(5), INFANT_HYPO, 17, 1.0)
+    iclusters = torch.from_numpy(cam - cam[:, :1]).to(dev)
+    condition = torch.from_numpy(normalize_data(ipx.cpu().numpy())).to(dev)
+    result["infant"] = {}
+    for name, module, hypo, cond, forwards in (("plain", tsm, INFANT_HYPO, None, 1000),
+                                               ("control", control_mlp, 1, None, 0),
+                                               ("cond", score_mlp_cond, 1, condition, 0)):
+        # the adapters' replays (~450,000 kernels) are profiled for one
+        # adapter: reading the trace takes half a minute
+        iparams = to_bf16(torch, module.init_params(torch.Generator().manual_seed(0), mcfg,
+                                                    device=dev))
+
+        def infant_solve(fn, generator, **kw):
+            return fn(iparams, module.apply, mcfg, mini.sde, mini.sampler, zcfg,
+                      iclusters[:hypo], ipx, ik, pelvis_mode="joint0", refine_t_from=950,
+                      generator=generator, condition=cond, **kw)
+
+        times, states, outs = {}, [], []
+        for mode, fn in (("eager", infant.solve_infant), ("first", infant.solve_infant_jit),
+                         ("replay", infant.solve_infant_jit)):
+            gen = torch.Generator(dev).manual_seed(0)
+            out, times[mode] = solve(fn, forwards, infant_solve, gen)
+            outs.append(out)
+            states.append(gen.get_state())
+        same = all(same_solve(torch, o, outs[0]) for o in outs[1:])
+        same_gen = all(torch.equal(s, states[0]) for s in states[1:])
+        if not (same and same_gen):
+            fail(f"compiled infant solve ({name}): bit-equal {same}, generator after the "
+                 f"call where eager leaves it {same_gen}")
+        log(f"compiled infant solve, {name}, {MINI_FRAMES} x {hypo} on {card}: eager "
+            f"{fmt(times['eager'])}, first call {fmt(times['first'])}, replay "
+            f"{fmt(times['replay'])}; kernel #1 {forwards} forwards a solve; bit-equal, the "
+            f"generator where eager leaves it")
+        result["infant"][name] = {**times, "rows": MINI_FRAMES * hypo}
+        if name != "cond":
+            with torch.no_grad():
+                prof_j = profiled(torch, lambda: infant_solve(
+                    infant.solve_infant_jit, torch.Generator(dev).manual_seed(0)))
+            log(f"  profiled replay: {dispatch_line(*prof_j)}")
+            result["infant"][name].update(compiled_dispatches=sum(prof_j[2].values()),
+                                          compiled_busy=prof_j[1] / prof_j[0])
+        parts[f"infant_{name}"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    # (e) solve_sharded at world size 1 over NCCL
+    import torch.distributed as dist
+
+    from zedo_tpu_torch.parallel import mesh as mesh_lib
+    from zedo_tpu_torch.parallel import multiprocess_check
+
+    mesh_lib.init_distributed(backend="nccl", rank=0, world_size=1, device="cuda:0",
+                              init_method=f"tcp://localhost:{multiprocess_check.free_port()}")
+    try:
+        mesh = mesh_lib.default_mesh(device=dev)
+        secs = []
+        for _ in range(2):
+            out, t = solve(pipeline.solve_sharded, 1000, lambda f, **kw: f(
+                mesh, params, cfg, preset.sde, preset.sampler, preset.zcfg, inputs[0], px,
+                conf, k, **kw))
+            secs.append(t)
+            if not same_solve(torch, out, want):
+                fail("solve_sharded at world size 1 over NCCL is not bit-equal to the eager "
+                     "solve")
+    finally:
+        dist.destroy_process_group()
+    log(f"solve_sharded {HEADLINE_N} x {HEADLINE_S} at world size 1 over NCCL on {card}: "
+        f"{', '.join(fmt(t) for t in secs)}; bit-equal to the eager solve")
+    result["sharded_world_1"] = secs
+    parts["sharded"] = time.perf_counter() - t_part
+    log(f"phase compiled solve, seconds by part: {parts}")
+    compiled.clear_cache()
+    return result
 
 
 def phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev):
@@ -1782,19 +2099,12 @@ def multigpu_rank(root: str) -> int:
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     with torch.no_grad():
         rows = mesh.row_slice(HEADLINE_N)
         for tag, track in (("solve", False), ("trace", True)):
             zcfg = dc.replace(preset.zcfg, oil=dc.replace(preset.zcfg.oil, track_reproj=track))
             sk.reset_launch_counts()
-            res, secs = timed(lambda: pipeline.solve_sharded(
+            res, secs = timed(torch, lambda: pipeline.solve_sharded(
                 mesh, params, cfg, preset.sde, preset.sampler, zcfg, put(clusters), px, conf, k))
             launches = sk.launch_counts["fused_score_forward"]
             alone = pipeline.solve(params, cfg, preset.sde, preset.sampler, zcfg, put(clusters),
@@ -1812,7 +2122,7 @@ def multigpu_rank(root: str) -> int:
         izcfg = dc.replace(mini.zcfg, oil=dc.replace(mini.zcfg.oil, track_reproj=True))
         rows = mesh.row_slice(MINI_FRAMES)
         sk.reset_launch_counts()
-        res, secs = timed(lambda: infant.solve_infant_sharded(
+        res, secs = timed(torch, lambda: infant.solve_infant_sharded(
             mesh, params, tsm.apply, mini.model_cfg, mini.sde, mini.sampler, izcfg,
             put(iclusters), ipx, ik))
         launches = sk.launch_counts["fused_score_forward"]
@@ -1826,7 +2136,7 @@ def multigpu_rank(root: str) -> int:
                             zcfg=preset.zcfg, clusters=clusters, device=dev, batch_bucket=2,
                             mesh="dp2")
         sk.reset_launch_counts()
-        out, secs = timed(lambda: est.predict(px[:SERVE_POSES], k[:SERVE_POSES],
+        out, secs = timed(torch, lambda: est.predict(px[:SERVE_POSES], k[:SERVE_POSES],
                                               confidence=conf[:SERVE_POSES]))
         rec["serve"] = {"s": secs, "launches": sk.launch_counts["fused_score_forward"]}
         arrays["serve_poses"], arrays["serve_best"] = out["poses"], out["best"]
@@ -1838,7 +2148,7 @@ def multigpu_rank(root: str) -> int:
     for spec in MULTI_TRAIN_SPECS:
         argv = ["--config", "mini", "--epochs", "1", "--log_name", f"mesh_{spec}",
                 *train_overrides(root), "--mesh", spec, "--device", "cuda:0"]
-        out, secs = timed(lambda: train_pose_mini.main(argv))
+        out, secs = timed(torch, lambda: train_pose_mini.main(argv))
         rec[f"train_{spec}"] = {"s": secs, "steps": out["state"].step,
                                 "losses": list(out["history"]), "output_dir": out["output_dir"]}
         # each rank's own leaves that both ranks must hold bit for bit: dp2's
@@ -2371,6 +2681,10 @@ def main() -> int:
         torch, sk, tsm, presets, ZeDOEstimator, bench.build_inputs, dev)
     entry["cuda_launches_per_forward"] = per_forward
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    compiled = phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, dev)
+    compiled["seconds"] = time.perf_counter() - t0
+    log(f"phase compiled solve: {compiled['seconds']:.1f} s")
     kernel_share = entry["launches"] * entry["ms"] / 1e3 / sum(walls)
     log(f"request wall-clock {walls} s on {card}; kernel time (launches x kernel ms) "
         f"{kernel_share:.3f} of it, IPO {ipo_s * len(walls) / sum(walls):.3f}")
@@ -2428,7 +2742,7 @@ def main() -> int:
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
                       "sampling": sampling, "multigpu": multigpu, "rest": rest,
-                      "config_files": config_files,
+                      "config_files": config_files, "compiled": compiled,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

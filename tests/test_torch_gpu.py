@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from zedo_tpu_torch.models import score_mlp as tsm
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.kernels import score_kernel as tsk
 from zedo_tpu_torch.ops.kernels import score_kernel_probe as tprobe
 from zedo_tpu_torch.ops.kernels import score_kernel_split as tsplit
@@ -365,3 +366,141 @@ def test_config_file_estimator_launches_the_kernel(cuda_device):
     for key, value in want.items():
         np.testing.assert_array_equal(got[key], value, err_msg=key)
     assert np.isfinite(got["poses"]).all()
+
+
+def _solve_inputs(dev, n=64, s=5, seed=0):
+    """A scene of n poses, s cluster hypotheses and a short schedule."""
+    import numpy as np
+
+    from zedo_tpu_torch.diffusion.sde import SubVPSDE
+    from zedo_tpu_torch.zeroshot import ipo, oil, pipeline
+
+    rng = np.random.RandomState(seed)
+    pose = rng.randn(n, 17, 3).astype(np.float32) * 0.25
+    k = np.zeros((n, 3, 3), np.float32)
+    k[:, 0, 0] = k[:, 1, 1] = 1000.0
+    k[:, :2, 2] = 500.0
+    k[:, 2, 2] = 1.0
+    cam = np.einsum("nij,nkj->nki", k, pose + np.array([0.0, 0.0, 4.0], np.float32))
+    px = cam[..., :2] / cam[..., 2:] + rng.randn(n, 17, 2).astype(np.float32)
+    clusters = rng.randn(s, 17, 3).astype(np.float32) * 0.25
+    sde = SubVPSDE(n=30, t_max=0.1)
+    zcfg = pipeline.ZeDOConfig(ipo=ipo.IPOConfig(iterations=20),
+                               oil=oil.OILConfig(iterations=30, track_reproj=True))
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return sde, zcfg, put(clusters), put(px.astype(np.float32)), put(k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["kernel", "generic"])
+def test_solve_jit_is_bit_equal_to_solve(cuda_device, path):
+    """The compiled solve (IPO and OIL steps replayed as CUDA graphs) against
+    the eager solve at 64 x 5 at the published width: kernel #1 on bf16
+    weights, or the generic path (a Langevin corrector drawing from the
+    caller's generator, which stands where the eager solve leaves it)."""
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.zeroshot import pipeline
+
+    sde, zcfg, clusters, px, k = _solve_inputs(cuda_device)
+    cfg = tsm.ScoreMLPConfig()
+    params = tsm.init_params(torch.Generator().manual_seed(0), cfg, device=cuda_device)
+    if path == "kernel":
+        params = tree_map(lambda a: a.to(torch.bfloat16), params)
+        sampler = PCSampler(sde=sde, eps=0.01)
+    else:
+        sampler = PCSampler(sde=sde, eps=0.01, corrector="langevin")
+    results, states = [], []
+    for solve in (pipeline.solve, pipeline.solve_jit, pipeline.solve_jit):
+        gen = torch.Generator(cuda_device).manual_seed(7)
+        with torch.no_grad():
+            results.append(solve(params, cfg, sde, sampler, zcfg, clusters, px, None, k,
+                                 generator=gen))
+        states.append(gen.get_state())
+    for got in results[1:]:
+        assert torch.equal(got.poses, results[0].poses)
+        assert torch.equal(got.translations, results[0].translations)
+        assert torch.equal(got.reproj_px, results[0].reproj_px)
+    for state in states[1:]:
+        assert torch.equal(state, states[0])
+    assert torch.isfinite(results[0].poses).all()
+
+
+@pytest.mark.gpu
+def test_replays_count_kernel_launches(cuda_device):
+    """Kernel #1's counters count the forwards the OIL graphs replay: one a
+    step on every call, the first (warm-up and capture) included."""
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.utils import compiled
+    from zedo_tpu_torch.zeroshot import pipeline
+
+    sde, zcfg, clusters, px, k = _solve_inputs(cuda_device, n=48, s=3, seed=1)
+    cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128)
+    params = tree_map(lambda a: a.to(torch.bfloat16),
+                      tsm.init_params(torch.Generator().manual_seed(1), cfg, device=cuda_device))
+    compiled.clear_cache()
+    for call in range(3):
+        tsk.reset_launch_counts()
+        with torch.no_grad():
+            pipeline.solve_jit(params, cfg, sde, PCSampler(sde=sde, eps=0.01), zcfg, clusters,
+                               px, None, k)
+        steps = zcfg.oil.iterations
+        assert tsk.launch_counts["fused_score_forward"] == steps, call
+        assert tsk.path_launches == {"wgmma": steps, "wmma": 0}
+        assert tsk.gn_mode_launches == {"bf16": steps, "f32": 0}
+        assert tsk.row_launches == {48 * 3: steps}
+    assert compiled.cache_info()["entries"] == 2  # IPO and OIL, captured once
+
+
+CAPTURE_FAILS = """
+import functools, sys, torch
+from zedo_tpu_torch.utils import compiled
+
+def body(carry, consts, ys, counter, generator, variant, *, scale):
+    host = torch.tensor([scale])  # pageable host memory, copied in the step
+    return {"x": carry["x"] + host.to(carry["x"].device)}
+
+carry = {"x": torch.zeros(4, device="cuda")}
+try:
+    compiled.scan(functools.partial(body, scale=2.0), (None,) * 3, carry, {}, {}, compiled=True)
+except Exception as exc:
+    assert compiled.cache_info()["entries"] == 0, compiled.cache_info()
+    assert torch.equal(carry["x"], torch.zeros(4, device="cuda"))
+    print("raised", type(exc).__name__)
+    sys.exit(0)
+print("no error: the capture ran")
+sys.exit(1)
+"""
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(cuda_device):
+    """A step whose capture fails (it copies pageable host memory to the
+    card) raises from the compiled scan, caches nothing and leaves the
+    caller's carry as it was: there is no fallback to the eager loop. Run in
+    a process of its own, as a failed capture may leave its stream's state
+    to that process."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", CAPTURE_FAILS], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised" in out.stdout
+
+
+@pytest.mark.gpu
+def test_ipo_corrections_apply_as_a_python_float_division(cuda_device):
+    """IPO's table on CUDA holds what PyTorch's CUDA division by a Python
+    float multiplies by, so the scan's step is the Adam step written with
+    Python-float corrections, bit for bit."""
+    from zedo_tpu_torch.zeroshot import ipo
+
+    x = torch.rand(1 << 16, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 3
+    for dtype in (torch.float32, torch.float64):
+        table = ipo.adam_corrections(500, dtype, cuda_device)
+        xx = x.to(dtype)
+        for step in (1, 2, 7, 100, 500):
+            for col, decay in enumerate((ipo.B1, ipo.B2)):
+                assert torch.equal(xx * table[step - 1, col], xx / (1.0 - decay ** step))

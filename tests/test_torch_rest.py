@@ -343,13 +343,13 @@ def test_serving_hypo_ema_seed_match_jax(jax_estimators, hypo, use_ema, seed, mo
     # the estimator's seed reaches the solve as a generator built anew on
     # every predict, as JAX's predict builds PRNGKey(seed) on every call
     drawn = []
-    solve = tpipeline.solve
+    solve = tpipeline.solve_jit
 
     def recording_solve(*args, generator=None, **kwargs):
         drawn.append((generator.initial_seed(), generator.get_state().clone()))
         return solve(*args, generator=generator, **kwargs)
 
-    monkeypatch.setattr(tpipeline, "solve", recording_solve)
+    monkeypatch.setattr(tpipeline, "solve_jit", recording_solve)
     family = np.load(os.path.join(tbt.FIXTURE, "family.npz"))
     _, k, px = tbt.make_scenes(family, 6)
     config = presets.optim_config("h36m")

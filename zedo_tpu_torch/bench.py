@@ -9,9 +9,10 @@ compute as a trained checkpoint.
     python -m zedo_tpu_torch.bench [--n 886] [--s 50] [--fp32] [--reuse 1]
         [--oil 0] [--trained] [--device cuda]
 
-Port of bench.py on one device. It runs the solve once (first run: kernel
-build and allocator warm-up) and times the second, host clock around
-`pipeline.solve` plus its one device-to-host copy, with an IPO/OIL split
+Port of bench.py on one device. It runs the compiled solve once (first run:
+kernel build, warm-up and capture of the steps' CUDA graphs) and times the
+second, host clock around `pipeline.solve_jit` (JAX's bench runs the jitted
+sharded solve) plus its one device-to-host copy, with an IPO/OIL split
 (utils.profiling.Stopwatch, a device synchronize between the two phases)
 printed on the line before the result. Prints one JSON line:
   {"metric": "h36m_s50_eval_wallclock", "value": <s>, "unit": "s",
@@ -130,8 +131,8 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = pipeline.solve(params, cfg, sde, sampler, zcfg, *inputs,
-                                 stopwatch=stopwatch)
+            out = pipeline.solve_jit(params, cfg, sde, sampler, zcfg, *inputs,
+                                     stopwatch=stopwatch)
             poses = out.poses.cpu()  # the one device-to-host copy
         return time.perf_counter() - t0, float(poses.sum())
 
@@ -164,6 +165,8 @@ def main(argv=None) -> dict:
         "extras": {
             "poses_per_s": round(n * s / elapsed, 1),
             "compile_plus_first_run_s": round(first, 3),
+            # the sum of the timed solve's poses, as the host read them
+            "poses_checksum": checksum,
             "ipo_s": round(sw.totals["ipo"], 3),
             "oil_s": round(sw.totals["oil"], 3),
             "dtype": dtype,

@@ -338,4 +338,25 @@ inline bool cached_bf16_map(CUtensorMap* map, const void* base, uint64_t rows, u
   return true;
 }
 
+// A kernel's dynamic shared memory limit, raised to `bytes` on the current
+// device at most once per size: `limits` is the kernel's own table of what
+// each device was last set to. A launch that finds its size set makes no
+// attribute call, so a launch under CUDA graph capture (after a warm-up
+// launch) makes none.
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(int (&limits)[MAX_DEVICES], Kernel kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  if (limits[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) limits[dev] = bytes;
+  return err;
+}
+
 }  // namespace hopper

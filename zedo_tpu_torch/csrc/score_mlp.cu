@@ -264,8 +264,8 @@ cudaError_t launch(const LayerArgs& p, cudaStream_t stream) {
   const int rstd_bytes = p.mode == BIAS_OUT ? 0 : BM * (T::BN / p.group) * 4;
   const int epi = T::EPI_SMEM + rstd_bytes;
   const int smem = T::MAIN_SMEM > epi ? T::MAIN_SMEM : epi;
-  cudaError_t err = cudaFuncSetAttribute(dense_layer<A_F32, NF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int limits[hopper::MAX_DEVICES];
+  cudaError_t err = hopper::raise_smem_limit(limits, dense_layer<A_F32, NF>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.N / T::BN, (p.M + BM - 1) / BM);
   dense_layer<A_F32, NF><<<grid, THREADS, smem, stream>>>(p);

@@ -544,8 +544,8 @@ template <int MODE, int GN, int G, int EPI>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const LayerArgs& p,
                    cudaStream_t stream) {
   constexpr int smem = smem_bytes<EPI>();
-  cudaError_t err = cudaFuncSetAttribute(wgmma_layer<MODE, GN, G, EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int limits[MAX_DEVICES];
+  cudaError_t err = raise_smem_limit(limits, wgmma_layer<MODE, GN, G, EPI>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
   wgmma_layer<MODE, GN, G, EPI><<<grid, THREADS, smem, stream>>>(map_a, map_b, p);

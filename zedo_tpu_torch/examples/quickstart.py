@@ -5,7 +5,7 @@ diffusion prior, hidden 256, trained on a synthetic pose family and shipped
 in the reference's .pth layout), so it needs no dataset:
 
   1. library solve: load the checkpoint, lift 2D keypoints to 3D with
-     IPO + OIL (pipeline.solve) in fp32, score against the ground truth;
+     IPO + OIL (pipeline.solve_jit) in fp32, score against the ground truth;
   2. serving: ZeDOEstimator, loaded once, with the re-discretized
      low-latency schedule (OIL 200 / IPO 100), one request of 8 poses;
   3. the same solve through the port's batch CLI (the command is printed).
@@ -72,15 +72,15 @@ def main(argv=None) -> dict:
         oil=oil_lib.OILConfig(iterations=oil_iters, sampling_eps=0.01))
     t0 = time.perf_counter()
     with torch.no_grad():
-        res = pipeline.solve(params, cfg, sde, sampler, zcfg,
-                             *(torch.as_tensor(a, device=dev) for a in (clusters, px)), None,
-                             torch.as_tensor(k, device=dev),
-                             generator=torch.Generator(dev).manual_seed(0))
+        res = pipeline.solve_jit(params, cfg, sde, sampler, zcfg,
+                                 *(torch.as_tensor(a, device=dev) for a in (clusters, px)),
+                                 None, torch.as_tensor(k, device=dev),
+                                 generator=torch.Generator(dev).manual_seed(0))
     pred = res.poses.cpu().numpy()  # [N, S, 17, 3]
     solve_s = time.perf_counter() - t0
     init_mm = bench_trained.best_mpjpe(np.broadcast_to(clusters[None], pred.shape), gt)
     solved_mm = bench_trained.best_mpjpe(pred, gt)
-    print(f"1. pipeline.solve: {N_SCENES} scenes x {HYPO} hypotheses, {ipo_iters} IPO + "
+    print(f"1. pipeline.solve_jit: {N_SCENES} scenes x {HYPO} hypotheses, {ipo_iters} IPO + "
           f"{oil_iters} OIL steps in {solve_s:.1f}s (first call)")
     print(f"   cluster-init error {init_mm:.0f} mm -> solved MPJPE {solved_mm:.1f} mm\n",
           flush=True)

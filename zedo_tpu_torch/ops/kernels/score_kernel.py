@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch.ops.kernels import build
+from zedo_tpu_torch.utils import compiled
 
 LANE = 128
 GN_EPS = 1e-5
@@ -39,11 +40,13 @@ GN_EPS = 1e-5
 # launches of the CUDA kernel, by wrapper, and of fused_score_forward by
 # GroupNorm statistics mode, by kernel path and by the rows it was given;
 # the wrapper adds one to each per forward (a forward is six layer launches
-# in the C library)
+# in the C library). A forward captured in a CUDA graph (utils/compiled.py)
+# is counted on each replay of the graph.
 launch_counts = {"fused_score_forward": 0}
 gn_mode_launches = {"bf16": 0, "f32": 0}
 path_launches = {"wgmma": 0, "wmma": 0}
 row_launches: dict = {}
+compiled.register_counters(launch_counts, gn_mode_launches, path_launches, row_launches)
 
 
 def reset_launch_counts() -> None:
@@ -333,6 +336,9 @@ def fused_score_forward(x: torch.Tensor, packed: PackedScoreWeights,
     if b == 0:
         return out
     wgmma = bool(lib.zedo_score_mlp_takes_wgmma(h, packed.group_size, tile))
+    # scratch of this forward; under CUDA graph capture it comes from the
+    # graph's pool and stays its own, and the tensor maps the library encodes
+    # for it are kernel parameters passed by value, captured with the launch
     resid = torch.empty((b, h), dtype=torch.float32, device=x.device)
     act_h = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
     act_h1 = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)

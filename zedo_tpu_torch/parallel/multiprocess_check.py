@@ -171,7 +171,7 @@ k = torch.from_numpy(k)
 with torch.no_grad():
     full = pipeline.solve_sharded(mesh, params, cfg, sde, sampler, zcfg, clusters, px,
                                   None, k).poses
-    local = pipeline.solve(params, cfg, sde, sampler, zcfg, clusters, px, None, k).poses
+    local = pipeline.solve_jit(params, cfg, sde, sampler, zcfg, clusters, px, None, k).poses
 maxdiff = (full - local).abs().max().item()
 print(f"RESULT shape={tuple(full.shape)} sum={full.sum().item()!r} "
       f"maxdiff_vs_single={maxdiff:.2e} ok={maxdiff < 1e-5}")

@@ -167,9 +167,9 @@ def run_pipeline(config, args, dataset, logger_print=print, stopwatch=None,
         with torch.no_grad(), stopwatch.phase("solve"):
             clusters = put(sample_poses[:args.hypo])
             if mesh is None:
-                poses = pipeline.solve(params, preset.model_cfg, preset.sde, preset.sampler,
-                                       preset.zcfg, clusters, put(cond2d), put(conf), put(k),
-                                       stopwatch=stopwatch).poses
+                poses = pipeline.solve_jit(params, preset.model_cfg, preset.sde, preset.sampler,
+                                           preset.zcfg, clusters, put(cond2d), put(conf), put(k),
+                                           stopwatch=stopwatch).poses
             else:
                 padded, mask = pad_batch({"cond2d": cond2d, "conf": conf, "k": k},
                                          mesh.shape["data"])

@@ -150,7 +150,7 @@ def main(argv=None) -> dict:
     with torch.no_grad(), sw.phase("solve"):
         clusters = put(sample_poses[:args.hypo])
         if mesh is None:
-            result = infant.solve_infant(
+            result = infant.solve_infant_jit(
                 params, model_apply, preset.model_cfg, preset.sde, preset.sampler, zcfg,
                 clusters, put(cond2d), put(k), pelvis_mode=pelvis_mode, refine_t_from=950,
                 generator=generator, condition=None if condition is None else put(condition),

@@ -183,8 +183,8 @@ class ZeDOEstimator:
             pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg)
         generator = torch.Generator(self.device).manual_seed(self.seed)
         with torch.no_grad():
-            result = pipeline.solve(self.params, self.model_cfg, self.sde, self.sampler,
-                                    self.zcfg, clusters, kp, conf, kk, generator=generator)
+            result = pipeline.solve_jit(self.params, self.model_cfg, self.sde, self.sampler,
+                                        self.zcfg, clusters, kp, conf, kk, generator=generator)
             packed = _rank_and_pack(result.poses, result.translations, kp, kk)
         if self.mesh is None:
             host = packed.cpu()  # the one device-to-host copy

@@ -67,10 +67,10 @@ def main(argv=None) -> dict:
 
     def solve(p):
         with torch.no_grad():
-            out = pipeline.solve(p, cfg, preset.sde, preset.sampler, zcfg,
-                                 torch.from_numpy(clusters).to(dev),
-                                 torch.from_numpy(px).to(dev), None,
-                                 torch.from_numpy(k).to(dev))
+            out = pipeline.solve_jit(p, cfg, preset.sde, preset.sampler, zcfg,
+                                     torch.from_numpy(clusters).to(dev),
+                                     torch.from_numpy(px).to(dev), None,
+                                     torch.from_numpy(k).to(dev))
         return out.poses.double().cpu().numpy()
 
     poses32 = solve(params)

@@ -9,7 +9,7 @@ uninterrupted one would. The losses stay on the device until the epoch
 ends. An eval epoch samples the EMA prior with the full PC loop, scores the
 samples against the held-out poses (identity-covariance Mahalanobis to
 their mean) and solves a micro zero-shot scene with the EMA weights (IPO +
-OIL through `pipeline.solve`), then writes a checkpoint
+OIL through `pipeline.solve_jit`), then writes a checkpoint
 (utils/checkpoint.save_native).
 
 On a mesh (`train_loop(mesh=...)`, `make_sharded_train_step`) each rank
@@ -554,10 +554,10 @@ def _micro_solver(scene, model_apply_raw, model_cfg, sde, trainer_cfg, dev):
 
     def solve(params):
         with torch.no_grad():
-            res = pipeline.solve(params, model_cfg, sde, sampler, zcfg, put(scene["cluster"]),
-                                 put(scene["px"]), None, put(scene["k"]),
-                                 model_apply=model_apply,
-                                 generator=torch.Generator(device=dev).manual_seed(0))
+            res = pipeline.solve_jit(params, model_cfg, sde, sampler, zcfg,
+                                     put(scene["cluster"]), put(scene["px"]), None,
+                                     put(scene["k"]), model_apply=model_apply,
+                                     generator=torch.Generator(device=dev).manual_seed(0))
         pred = res.poses[:, 0].cpu().numpy()
         pred = pred - pred[:, 0:1]
         err = np.linalg.norm(pred - scene["gt"], axis=-1).mean()

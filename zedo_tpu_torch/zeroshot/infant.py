@@ -14,6 +14,8 @@ Deltas from the adult pipeline:
 
 As in `pipeline.solve`, the S hypotheses are folded into the batch (rows
 hypothesis-major, s*N + n), so IPO and OIL run once on S*N rows.
+`solve_infant_jit` is the compiled solve (as `pipeline.solve_jit`; JAX
+compiles the infant solve under `jax.jit(shard_map(...))`), and
 `solve_infant_sharded` runs it on a mesh of ranks, as
 `pipeline.solve_sharded` runs the adult solve.
 """
@@ -99,19 +101,16 @@ def _with_condition(model_apply, condition: torch.Tensor):
 
 def _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
                          cluster_poses, cond2d, k, pelvis_mode, refine_t_from, generator,
-                         reproj_weight, condition, stopwatch) -> OILResult:
+                         reproj_weight, condition, stopwatch, compiled=False) -> OILResult:
     cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype, device=cond2d.device)
     s, n = cluster_poses.shape[0], cond2d.shape[0]
     pose0 = cluster_poses[:, None].expand(s, n, *cluster_poses.shape[1:])
     pose0 = pose0.reshape(s * n, *cluster_poses.shape[1:])
     cond2d, k = fold(cond2d, s), fold(k, s)
-    if condition is not None:
-        # each folded row conditioned on its own sample's keypoints
-        model_apply = _with_condition(model_apply, fold(condition, s))
 
     with _phase(stopwatch, "ipo", cond2d.device):
         t0 = init_translation_infant(cond2d, k, cfg.ipo.t_norm, pelvis_mode)
-        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, t=t0, n_groups=s)
+        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, t=t0, n_groups=s, compiled=compiled)
         x0 = _rotate(ipo.rot_mat, ray_init_pose(cond2d, k, ipo.translation, pelvis_mode))
     # the reference re-solves T from step 950 of its fixed 1000-step
     # schedule: the same fraction of the configured iterations
@@ -120,7 +119,9 @@ def _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDO
     with _phase(stopwatch, "oil", cond2d.device):
         return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation, cond2d, k, None,
                        oil_cfg, model_apply=model_apply, generator=generator,
-                       reproj_weight=fold(reproj_weight, s), n_groups=s)
+                       reproj_weight=fold(reproj_weight, s), n_groups=s,
+                       # each folded row conditioned on its own sample's keypoints
+                       condition=fold(condition, s), compiled=compiled)
 
 
 def solve_one_hypothesis_infant(params: dict, model_apply, model_cfg: score_mlp.ScoreMLPConfig,
@@ -158,6 +159,18 @@ def solve_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
     return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
 
 
+def solve_infant_jit(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
+                     cluster_poses, cond2d, k, pelvis_mode="joint0", refine_t_from=950,
+                     generator=None, reproj_weight=None, condition=None,
+                     stopwatch=None) -> SolveResult:
+    """The compiled infant solve: `solve_infant`'s arguments and result, IPO
+    and OIL as compiled scans (CUDA graphs on the card, cached as
+    `pipeline.solve_jit` caches them), bit-equal to `solve_infant`."""
+    res = _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg,
+                               cluster_poses, cond2d, k, pelvis_mode, refine_t_from,
+                               generator, reproj_weight, condition, stopwatch, compiled=True)
+    return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
+
 
 def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
                          cluster_poses, cond2d, k, pelvis_mode="joint0", refine_t_from=950,
@@ -165,7 +178,7 @@ def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg
                          row_mask=None, stopwatch=None) -> SolveResult:
     """The infant solve on a mesh (mirror of pipeline.solve_sharded, which
     see): every rank passes the same global inputs, solves its block of the
-    N frames with `solve_infant` and gets the global result. `condition`
+    N frames with `solve_infant_jit` and gets the global result. `condition`
     [N, j, c] is sharded with the batch; the adapters take the generic path
     on each rank, with `generator` seeded alike on every rank. Under
     OILConfig.track_reproj the [S, steps] trace is averaged over the data
@@ -176,8 +189,8 @@ def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg
                                                        k, condition, weight)
     if model_apply is score_mlp.apply:
         pipeline.prebuild_kernel(mesh, params, model_cfg)
-    res = solve_infant(params, model_apply, model_cfg, sde, sampler, cfg, cluster_poses,
-                       cond2d, k, pelvis_mode=pelvis_mode, refine_t_from=refine_t_from,
-                       generator=generator, reproj_weight=weight, condition=condition,
-                       stopwatch=stopwatch)
+    res = solve_infant_jit(params, model_apply, model_cfg, sde, sampler, cfg, cluster_poses,
+                           cond2d, k, pelvis_mode=pelvis_mode, refine_t_from=refine_t_from,
+                           generator=generator, reproj_weight=weight, condition=condition,
+                           stopwatch=stopwatch)
     return pipeline.gather_result(pipeline.reduce_trace(res, mesh, data_axis), mesh, data_axis)

@@ -13,16 +13,26 @@ Hypotheses may be folded into the batch (`n_groups`): the loss is then the
 sum over groups of each group's own mean, so every hypothesis sees exactly
 the gradient of its own mean loss. A plain mean over the folded batch would
 shrink each gradient by 1/S, and Adam's eps term would bend the trajectory.
+
+The loop is a scan (utils/compiled.py), JAX's one `lax.scan` of Adam steps:
+the carry is the parameters, Adam's moments and the loss; the per-step input
+is Adam's two bias corrections, read from a [iterations, 2] table at the
+device step counter. `run_ipo(compiled=True)` replays the step as a CUDA
+graph; the eager loop runs the same body.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zedo_tpu_torch.ops.linalg import inv_intrinsics
 from zedo_tpu_torch.ops.rotations import quaternion_to_matrix
+from zedo_tpu_torch.utils.compiled import scan
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,25 +96,64 @@ def _project_pose(quat, scale, pose, t, k, cfg: IPOConfig):
     return torch.stack([px / pz, py / pz], dim=-1)
 
 
+def adam_corrections(iterations: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[iterations, 2] Adam's bias corrections (1 - b1^step, 1 - b2^step) of
+    steps 1..iterations, the IPO scan's per-step input, as the step applies
+    them: Python's double power rounded once to the pose dtype, which the CPU
+    divides by; on CUDA its reciprocal taken in double and rounded to the
+    pose dtype, which the step multiplies by, as PyTorch's CUDA division by
+    a Python float does."""
+    table = [(1.0 - B1 ** s, 1.0 - B2 ** s) for s in range(1, iterations + 1)]
+    if torch.device(device).type == "cuda":
+        table = [(1.0 / c1, 1.0 / c2) for c1, c2 in table]
+    return torch.tensor(table, dtype=dtype).reshape(-1, 2).to(device)
+
+
+def _ipo_body(carry, consts, ys, counter, generator, variant, *, cfg: IPOConfig, n_groups: int,
+              reciprocal: bool):
+    """One Adam step: the loss's gradient by autograd, then optax's update
+    with the step's bias corrections from the table (their reciprocals on
+    CUDA: `adam_corrections`)."""
+    params, mu, nu = carry["params"], carry["mu"], carry["nu"]
+    with torch.enable_grad():
+        leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+        quat = _quaternion(leaves, consts["pose"].shape[0], cfg.rot_axes)
+        px = _project_pose(quat, leaves["scale"], consts["pose"], consts["t"], consts["k"], cfg)
+        loss = (px - consts["target"]).abs().reshape(n_groups, -1).mean(1).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        c1, c2 = consts["corrections"].index_select(0, counter).reshape(2).unbind(0)
+        new = {}
+        for (n, p), g in zip(params.items(), grads):
+            mu[n].mul_(B1).add_(g, alpha=1 - B1)
+            nu[n].mul_(B2).addcmul_(g, g, value=1 - B2)
+            if reciprocal:
+                upd = (mu[n] * c1) / (torch.sqrt(nu[n] * c2) + EPS)
+            else:
+                upd = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + EPS)
+            new[n] = p - cfg.lr * upd
+    return {"params": new, "mu": mu, "nu": nu, "loss": loss.detach()}
+
+
 def run_ipo(pose: torch.Tensor, cond2d: torch.Tensor, k: torch.Tensor,
-            cfg: IPOConfig, t=None, n_groups: int = 1) -> IPOResult:
+            cfg: IPOConfig, t=None, n_groups: int = 1, compiled: bool = False) -> IPOResult:
     """Fit rotation + translation scale.
 
     pose: [B, j, 3] root-relative init pose; cond2d: [B, j, >=2] observed 2D
     keypoints; k: [B, 3, 3]; t: optional [B, 1, 3] initial translation
     (defaults to the pelvis ray). n_groups: hypotheses folded into B, each
     of B / n_groups contiguous rows, each normalized as its own mean.
+    compiled: the step as a compiled scan (a CUDA graph on the card).
     """
     batch = pose.shape[0]
     if batch % n_groups:
         raise ValueError(f"batch {batch} does not split into {n_groups} groups")
     keylist = torch.as_tensor(cfg.keypoint_list, device=pose.device)
-    pose_sel = pose[:, keylist, :].detach()
-    target = cond2d[:, keylist, :2].detach()
     if t is None:
         t = init_translation(cond2d, k, cfg.t_norm)
-    t = t.detach()
-    k = k.detach()
+    consts = {"pose": pose[:, keylist, :].detach(), "target": cond2d[:, keylist, :2].detach(),
+              "t": t.detach(), "k": k.detach(),
+              "corrections": adam_corrections(cfg.iterations, pose.dtype, pose.device)}
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=pose.dtype, device=pose.device)
@@ -112,32 +161,19 @@ def run_ipo(pose: torch.Tensor, cond2d: torch.Tensor, k: torch.Tensor,
     params = {"rot_vect": zeros(batch, 1) + 1, "scale": zeros(batch, 1, 1) + 1}
     for axe in cfg.rot_axes:
         params[f"rot_vect_{axe}"] = zeros(batch, 1)
-    names = list(params)
-    mu = {n: torch.zeros_like(p) for n, p in params.items()}
-    nu = {n: torch.zeros_like(p) for n, p in params.items()}
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    carry = {"params": params,
+             "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+             "nu": {n: torch.zeros_like(p) for n, p in params.items()},
+             "loss": zeros()}
+    body = functools.partial(_ipo_body, cfg=cfg, n_groups=n_groups,
+                             reciprocal=pose.device.type == "cuda")
+    carry, _ = scan(body, (None,) * cfg.iterations, carry, consts, {}, compiled=compiled)
 
-    loss = zeros()
-    for step in range(1, cfg.iterations + 1):
-        with torch.enable_grad():
-            leaves = {n: params[n].requires_grad_(True) for n in names}
-            quat = _quaternion(leaves, batch, cfg.rot_axes)
-            px = _project_pose(quat, leaves["scale"], pose_sel, t, k, cfg)
-            loss = (px - target).abs().reshape(n_groups, -1).mean(1).sum()
-            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
-        with torch.no_grad():
-            c1, c2 = 1.0 - b1 ** step, 1.0 - b2 ** step
-            for n, g in zip(names, grads):
-                mu[n].mul_(b1).add_(g, alpha=1 - b1)
-                nu[n].mul_(b2).addcmul_(g, g, value=1 - b2)
-                upd = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps)
-                params[n] = params[n].detach() - cfg.lr * upd
-        loss = loss.detach()
-
+    params = carry["params"]
     quat = _quaternion(params, batch, cfg.rot_axes)
     scale = params["scale"]
     return IPOResult(
         rot_mat=quaternion_to_matrix(quat),
-        translation=t * scale.clamp(cfg.min_scale_t, cfg.max_scale_t),
-        quaternion=quat, scale=scale, loss=loss,
+        translation=consts["t"] * scale.clamp(cfg.min_scale_t, cfg.max_scale_t),
+        quaternion=quat, scale=scale, loss=carry["loss"],
     )

@@ -17,17 +17,25 @@ precomputed. Every other model (the ControlNet and conditional adapters, a
 `PCSampler.zedo_pc_step` a step through the predictor/corrector registries,
 with noise from a per-call `torch.Generator` drawn in step order.
 
-The step loop is a Python loop over device tensors with no host sync
-inside: no .item(), no .cpu(), and its only branches depend on the step
-index. The per-step diagnostics (`grad_norms`, and `reproj_px` under
-`track_reproj`) are written into device tensors allocated before the loop.
-With the hypotheses folded into the batch (`n_groups`) the model gets all
-[S*N, j*3] rows in one call per step, and each diagnostic is reduced per
-hypothesis, over its own N rows.
+Each path's step is a scan body (utils/compiled.py), JAX's `lax.scan`
+body: the carry is the pose, the translation and, under score_reuse, the
+held model output; the per-step inputs (c1, c2 and the step vectors or time
+embeddings on the fast path, the timestamps on the generic path) are read
+from device tables at the device step counter, and the per-step diagnostics
+(`grad_norms`, and `reproj_px` under `track_reproj`) are written into
+[steps, G] tables at the same counter. The step index reaches the body only
+as the host's choice of variant: whether the step re-solves the translation
+(`i >= n_fixed`) and whether it evaluates the model (`i % score_reuse ==
+0`), at most four bodies. No step reads the device from the host.
+`run_oil(compiled=True)` replays each variant as a CUDA graph on the card;
+the eager loop runs the same bodies. With the hypotheses folded into the
+batch (`n_groups`) the model gets all [S*N, j*3] rows in one call per step,
+and each diagnostic is reduced per hypothesis, over its own N rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,6 +51,7 @@ from zedo_tpu_torch.ops.gradient_field import (
 )
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
 from zedo_tpu_torch.ops.linalg import inv3x3
+from zedo_tpu_torch.utils.compiled import scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,40 +137,43 @@ class OILResult(NamedTuple):
     reproj_px: torch.Tensor
 
 
-class _Trace:
-    """The per-step diagnostics, in device tensors allocated before the loop
-    and written by the step without a host sync. Rows are G groups of
-    B / G contiguous rows (hypothesis-major), each reduced on its own."""
+def _trace_tables(cfg: OILConfig, n_groups: int, device) -> dict:
+    """The scan's per-step outputs: [steps, G] tables of zeros."""
+    shape = (cfg.iterations, n_groups)
+    return {name: torch.zeros(shape, dtype=torch.float32, device=device)
+            for name in ("grad_norms", "reproj_px")}
 
-    def __init__(self, cfg: OILConfig, k, cond2d, n_groups: int,
-                 reproj_weight: Optional[torch.Tensor]):
-        if cond2d.shape[0] % n_groups:
-            raise ValueError(f"batch {cond2d.shape[0]} does not split into {n_groups} groups")
-        self.k, self.cond2d, self.n_groups = k, cond2d, n_groups
-        self.track_reproj = cfg.track_reproj
-        self.weight = reproj_weight
-        shape = (cfg.iterations, n_groups)
-        self.grad_norms = torch.zeros(shape, dtype=torch.float32, device=cond2d.device)
-        self.reproj_px = torch.zeros(shape, dtype=torch.float32, device=cond2d.device)
 
-    def entry(self, i: int, x, t_cur):
-        if not self.track_reproj:
-            return
-        err = reprojection_error(x, t_cur, self.k, self.cond2d)
-        if self.weight is None:
-            torch.mean(err.reshape(self.n_groups, -1), dim=1, out=self.reproj_px[i])
-        else:
-            # per-row weights summing to 1 within each group
-            rows = self.weight * err.reshape(err.shape[0], -1).mean(1)
-            torch.sum(rows.reshape(self.n_groups, -1), dim=1, out=self.reproj_px[i])
+def _trace_entry(consts, ys, counter, x, t_cur, track_reproj: bool, n_groups: int) -> None:
+    """The step's mean pixel reprojection error at its entry, per group of
+    rows, into reproj_px at the counter (under track_reproj)."""
+    if not track_reproj:
+        return
+    err = reprojection_error(x, t_cur, consts["k"], consts["cond2d"])
+    weight = consts["reproj_weight"]
+    if weight is None:
+        value = torch.mean(err.reshape(n_groups, -1), dim=1)
+    else:
+        # per-row weights summing to 1 within each group
+        rows = weight * err.reshape(err.shape[0], -1).mean(1)
+        value = torch.sum(rows.reshape(n_groups, -1), dim=1)
+    ys["reproj_px"].index_copy_(0, counter, value[None])
 
-    def gradient(self, i: int, grad):
-        norms = torch.linalg.vector_norm(grad, dim=-1)
-        torch.mean(norms.reshape(self.n_groups, -1), dim=1, out=self.grad_norms[i])
 
-    def result(self, x, t_cur) -> OILResult:
-        return OILResult(pose=x, translation=t_cur, grad_norms=self.grad_norms.t(),
-                         reproj_px=self.reproj_px.t())
+def _trace_gradient(ys, counter, grad, n_groups: int) -> None:
+    norms = torch.linalg.vector_norm(grad, dim=-1)
+    ys["grad_norms"].index_copy_(0, counter, torch.mean(norms.reshape(n_groups, -1), dim=1)[None])
+
+
+def _at(table: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """The counter's row of a per-step table, without its step axis."""
+    return table.index_select(0, counter)[0]
+
+
+def _schedule(cfg: OILConfig) -> tuple:
+    """Each step's variant: (re-solve the translation, evaluate the model)."""
+    reuse = max(1, cfg.score_reuse)
+    return tuple((i >= cfg.n_fixed, i % reuse == 0) for i in range(cfg.iterations))
 
 
 def _fast_supported(sde: SDE, sampler: PCSampler) -> bool:
@@ -176,7 +188,8 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
             sampler: PCSampler, x0: torch.Tensor, t0: torch.Tensor,
             cond2d: torch.Tensor, k: torch.Tensor, conf: Optional[torch.Tensor],
             cfg: OILConfig, model_apply=None, generator: Optional[torch.Generator] = None,
-            reproj_weight: Optional[torch.Tensor] = None, n_groups: int = 1) -> OILResult:
+            reproj_weight: Optional[torch.Tensor] = None, n_groups: int = 1,
+            condition: Optional[torch.Tensor] = None, compiled: bool = False) -> OILResult:
     """The full OIL loop.
 
     x0: [B, j, 3] rotated init pose; t0: [B, 1, 3] IPO translation;
@@ -188,23 +201,42 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
     reproj_weight: optional [B] per-row weights of the track_reproj trace,
     summing to 1 within each group (None = uniform).
     n_groups: groups (hypotheses) of B / n_groups contiguous rows folded into
-    the batch; the diagnostics come back [n_groups, steps]."""
+    the batch; the diagnostics come back [n_groups, steps].
+    condition: optional [B, j, c] model condition, passed to model_apply
+    wherever the sampler passes none (the generic path).
+    compiled: the step as a compiled scan (CUDA graphs on the card)."""
     if not isinstance(sampler, PCSampler):
         raise TypeError(
             "the OIL loop requires the pc sampler (one corrector + predictor step per "
             "iteration); the ODE sampler is only valid for full-loop sampling")
-    geo = precompute_geometry(cond2d, k, conf)
+    if cond2d.shape[0] % n_groups:
+        raise ValueError(f"batch {cond2d.shape[0]} does not split into {n_groups} groups")
     timestamps = torch.linspace(sde.T, cfg.sampling_eps, cfg.iterations,
                                 dtype=torch.float32, device=x0.device)
-    trace = _Trace(cfg, k, cond2d, n_groups, reproj_weight)
+    consts = {"geo": precompute_geometry(cond2d, k, conf)}
+    if cfg.track_reproj:
+        consts.update(k=k, cond2d=cond2d, reproj_weight=reproj_weight)
+    carry = {"x": x0, "t": t0}
+    if cfg.score_reuse > 1:
+        carry["out"] = torch.zeros_like(x0)
     standard_model = ((model_apply is None or model_apply is score_mlp.apply)
-                      and not model_cfg.scale_by_sigma)
+                      and condition is None and not model_cfg.scale_by_sigma)
     if standard_model and _fast_supported(sde, sampler):
-        return _run_oil_fast(params, model_cfg, sde, geo, x0, t0, timestamps, cfg, trace)
-    if generator is None:
-        generator = torch.Generator(device=x0.device).manual_seed(0)
-    return _run_oil_generic(params, model_cfg, sde, sampler, geo, x0, t0, timestamps, cfg,
-                            generator, model_apply or score_mlp.apply, trace)
+        model_consts, static = _fast_program(params, model_cfg, sde, timestamps, cfg)
+        consts.update(model_consts)
+        body = functools.partial(_fast_body, cfg=cfg, n_groups=n_groups, **static)
+    else:
+        if generator is None:
+            generator = torch.Generator(device=x0.device).manual_seed(0)
+        consts.update(ts=timestamps, params=params, condition=condition)
+        body = functools.partial(_generic_body, cfg=cfg, n_groups=n_groups, sde=sde,
+                                 sampler=sampler, model_cfg=model_cfg,
+                                 model_apply=model_apply or score_mlp.apply)
+    carry, ys = scan(body, _schedule(cfg), carry, consts, _trace_tables(cfg, n_groups, x0.device),
+                     generator=None if body.func is _fast_body else generator,
+                     compiled=compiled)
+    return OILResult(pose=carry["x"], translation=carry["t"], grad_norms=ys["grad_norms"].t(),
+                     reproj_px=ys["reproj_px"].t())
 
 
 def _kernel_eligible(params, model_cfg) -> bool:
@@ -215,18 +247,20 @@ def _kernel_eligible(params, model_cfg) -> bool:
             and w.device.type == "cuda")
 
 
-def _geometry_step(geo: Geometry, cfg: OILConfig, trace: _Trace, i: int, x, t_cur):
+def _geometry_step(consts, ys, counter, resolve: bool, x, t_cur, cfg: OILConfig, n_groups: int):
     """The step's translation re-solve and ray gradient: (x + grad, t)."""
-    trace.entry(i, x, t_cur)
-    if i >= cfg.n_fixed:
+    geo = consts["geo"]
+    _trace_entry(consts, ys, counter, x, t_cur, cfg.track_reproj, n_groups)
+    if resolve:
         t_cur = solve_translation_fast(geo, x)
     grad = ray_gradient(geo, x, t_cur)
-    trace.gradient(i, grad)
+    _trace_gradient(ys, counter, grad, n_groups)
     return x + grad, t_cur
 
 
-def _run_oil_fast(params, model_cfg, sde: SubVPSDE, geo: Geometry, x0, t0,
-                  timestamps, cfg: OILConfig, trace: _Trace) -> OILResult:
+def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig):
+    """The fast path's per-step tables and model operands (computed once per
+    solve, outside the scan) and its static arguments."""
     # model compute dtype follows the params; geometry stays f32
     model_dtype = params["post_dense"]["weight"].dtype
     t = timestamps
@@ -238,70 +272,81 @@ def _run_oil_fast(params, model_cfg, sde: SubVPSDE, geo: Geometry, x0, t0,
     # x_mean = x + drift*dt with drift = -0.5*beta*x - g^2*score,
     # score = -model_out/std, dt = -1/N  =>  x_mean = x + c1*x - c2*model_out
     inv_n = 1.0 / sde.n
-    c1 = (0.5 * beta * inv_n).unbind(0)
-    c2 = (g2 / std * inv_n).unbind(0)
+    consts = {"c1": 0.5 * beta * inv_n, "c2": g2 / std * inv_n}
 
     temb_table = score_mlp.time_embedding(params, model_cfg, t * CONTINUOUS_LABEL_SCALE)
 
     use_kernel = cfg.use_kernel
     if use_kernel is None:
         use_kernel = _kernel_eligible(params, model_cfg)
-
     if use_kernel:
         packed = sk.pack_weights(params, model_cfg, dtype=model_dtype,
                                  gn_dtype=torch.float32 if cfg.gn_fp32 else None)
-        # [steps, 5, H] per-step layer vectors, precomputed outside the loop
-        vecs = sk.step_vectors(packed, temb_table).contiguous().unbind(0)
-
-        def model_forward(x, i):
-            out = sk.fused_score_forward(x.reshape(x.shape[0], -1), packed, vecs[i])
-            return out.reshape(x.shape)
+        # [steps, 5, H] per-step layer vectors, precomputed outside the scan
+        consts.update(model=packed, steps=sk.step_vectors(packed, temb_table).contiguous())
     else:
-        temb = temb_table.unbind(0)
-
-        def model_forward(x, i):
-            return score_mlp.apply_with_temb(
-                params, model_cfg, x.to(model_dtype), temb[i]).to(x.dtype)
-
-    reuse = max(1, cfg.score_reuse)
-    x, t_cur, out = x0, t0, None
-    for i in range(cfg.iterations):
-        x, t_cur = _geometry_step(geo, cfg, trace, i, x, t_cur)
-        if i % reuse == 0:
-            out = model_forward(x, i)
-        x = x + c1[i] * x - c2[i] * out
-    return trace.result(x, t_cur)
+        consts.update(model=params, steps=temb_table)
+    return consts, {"model_cfg": model_cfg, "model_dtype": model_dtype,
+                    "use_kernel": bool(use_kernel)}
 
 
-def _run_oil_generic(params, model_cfg, sde: SDE, sampler: PCSampler, geo: Geometry, x0, t0,
-                     timestamps, cfg: OILConfig, gen: torch.Generator, model_apply,
-                     trace: _Trace) -> OILResult:
-    """Any predictor and corrector of the registries, one zedo_pc_step a
-    step (the reference's dynamics exactly at score_reuse=1).
+def _fast_body(carry, consts, ys, counter, generator, variant, *, cfg: OILConfig,
+               n_groups: int, model_cfg, model_dtype, use_kernel: bool):
+    """One fast-path step: geometry, the model (kernel #1 or the plain
+    ScoreMLP) where the variant evaluates it, the deterministic update."""
+    resolve, evaluate = variant
+    x, t_cur = _geometry_step(consts, ys, counter, resolve, carry["x"], carry["t"], cfg,
+                              n_groups)
+    out = carry.get("out")
+    if evaluate:
+        step = _at(consts["steps"], counter)
+        if use_kernel:
+            out = sk.fused_score_forward(x.reshape(x.shape[0], -1), consts["model"], step)
+            out = out.reshape(x.shape)
+        else:
+            out = score_mlp.apply_with_temb(consts["model"], model_cfg, x.to(model_dtype),
+                                            step).to(x.dtype)
+    c1, c2 = _at(consts["c1"], counter), _at(consts["c2"], counter)
+    new = {"x": x + c1 * x - c2 * out, "t": t_cur}
+    if "out" in carry:
+        new["out"] = out
+    return new
+
+
+def _generic_body(carry, consts, ys, counter, generator, variant, *, cfg: OILConfig,
+                  n_groups: int, sde: SDE, sampler: PCSampler, model_cfg, model_apply):
+    """One generic-path step: geometry, then any predictor and corrector of
+    the registries, one zedo_pc_step (the reference's dynamics exactly at
+    score_reuse=1).
 
     score_reuse > 1: the raw network output is evaluated every k-th step
     and held in between; each step converts the held output into a score
     with the CURRENT std (diffusion.score.split_score_fn, the decomposition
     of the fast path). Within a reused step the corrector sees the held
     output too."""
+    resolve, evaluate = variant
+    params, fixed = consts["params"], consts["condition"]
 
     def model_fn(x, labels, condition, mask):
-        return model_apply(params, model_cfg, x, labels, condition, mask)
+        # the fixed condition wherever the sampler passes none
+        return model_apply(params, model_cfg, x, labels,
+                           fixed if condition is None else condition, mask)
 
-    reuse = max(1, cfg.score_reuse)
-    score_fn = get_score_fn(sde, model_fn, continuous=sampler.continuous)
-    eval_fn, score_from_out = split_score_fn(sde, model_fn, continuous=sampler.continuous)
-    ts = timestamps.unbind(0)
-    x, t_cur, out = x0, t0, None
-    for i in range(cfg.iterations):
-        x, t_cur = _geometry_step(geo, cfg, trace, i, x, t_cur)
-        if reuse > 1:
-            if i % reuse == 0:
-                out = eval_fn(x, ts[i].expand(x.shape[0])).to(x.dtype)
+    x, t_cur = _geometry_step(consts, ys, counter, resolve, carry["x"], carry["t"], cfg,
+                              n_groups)
+    t_i = _at(consts["ts"], counter)
+    new = {"t": t_cur}
+    if "out" in carry:
+        eval_fn, score_from_out = split_score_fn(sde, model_fn, continuous=sampler.continuous)
+        out = carry["out"]
+        if evaluate:
+            out = eval_fn(x, t_i.expand(x.shape[0])).to(x.dtype)
+        new["out"] = out
 
-            def score_fn(x_, t_, condition=None, mask=None, out=out):
-                return score_from_out(out, x_, t_)
-
-        x_next, x_mean = sampler.zedo_pc_step(score_fn, gen, x, ts[i])
-        x = x_mean if sampler.denoise else x_next
-    return trace.result(x, t_cur)
+        def score_fn(x_, t_, condition=None, mask=None):
+            return score_from_out(out, x_, t_)
+    else:
+        score_fn = get_score_fn(sde, model_fn, continuous=sampler.continuous)
+    x_next, x_mean = sampler.zedo_pc_step(score_fn, generator, x, t_i)
+    new["x"] = x_mean if sampler.denoise else x_next
+    return new

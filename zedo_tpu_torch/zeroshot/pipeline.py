@@ -6,10 +6,16 @@ batch (rows ordered hypothesis-major, s*N + n), so IPO and OIL run once on
 S*N rows and the score network sees all of them in one launch per step.
 IPO keeps each hypothesis's own mean loss (zeroshot/ipo.py).
 
+`solve_jit` is the compiled solve, JAX's `jax.jit(solve)`: IPO and OIL run
+as compiled scans (utils/compiled.py), each step a CUDA graph replayed on the
+card, cached by the static arguments and the shapes. `solve` runs the same
+scan bodies in a Python loop: the oracle the compiled solve is held to.
+
 `solve_sharded` runs the solve on a mesh of ranks (parallel/mesh.py), one
 process per GPU: each rank solves its contiguous block of the N poses (JAX's
-P("data") placement) with `solve`, so its rows are those of `solve` on that
-block alone, and the result is gathered to every rank by one all-gather.
+P("data") placement) with `solve_jit`, so its rows are those of `solve` on
+that block alone, and the result is gathered to every rank by one all-gather
+outside the graphs (JAX's `jax.jit(shard_map(solve))`).
 """
 from __future__ import annotations
 
@@ -92,7 +98,8 @@ def fold(a: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
 
 def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
                   cluster_poses, cond2d, conf, k, model_apply=None,
-                  stopwatch=None, generator=None, reproj_weight=None) -> OILResult:
+                  stopwatch=None, generator=None, reproj_weight=None,
+                  compiled: bool = False) -> OILResult:
     """All hypotheses in one batch of S*N rows, hypothesis-major."""
     cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype,
                                     device=cond2d.device)
@@ -103,12 +110,13 @@ def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
     cond2d, k, conf = fold(cond2d, s), fold(k, s), fold(conf, s)
 
     with _phase(stopwatch, "ipo", cond2d.device):
-        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s)
+        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s, compiled=compiled)
         x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
     with _phase(stopwatch, "oil", cond2d.device):
         return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
                        cond2d, k, conf, cfg.oil, model_apply=model_apply,
-                       generator=generator, reproj_weight=fold(reproj_weight, s), n_groups=s)
+                       generator=generator, reproj_weight=fold(reproj_weight, s), n_groups=s,
+                       compiled=compiled)
 
 
 def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
@@ -140,6 +148,26 @@ def solve(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
     [N] per-sample weights of the trace, summing to 1."""
     res = _solve_folded(params, model_cfg, sde, sampler, cfg, cluster_poses,
                         cond2d, conf, k, model_apply, stopwatch, generator, reproj_weight)
+    return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
+
+
+def solve_jit(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
+              sampler: PCSampler, cfg: ZeDOConfig, cluster_poses: torch.Tensor,
+              cond2d: torch.Tensor, conf: Optional[torch.Tensor], k: torch.Tensor,
+              model_apply=None, generator=None, reproj_weight=None,
+              stopwatch=None) -> SolveResult:
+    """The compiled solve: `solve`'s arguments and result, IPO and OIL as
+    compiled scans. The first call with new static arguments (model_cfg,
+    sde, sampler, cfg, model_apply) or new shapes captures the steps as CUDA
+    graphs; later calls copy their tensors into the graphs' static buffers
+    (new params values capture nothing anew) and replay. Bit-equal to
+    `solve` on the same inputs; the generic path's draws come from
+    `generator` as in `solve`, which stands after the call where `solve`
+    leaves it. On CPU tensors the scan bodies run eagerly. stopwatch: as in
+    `solve`, "ipo" and "oil" time the replays (and a first call's capture)."""
+    res = _solve_folded(params, model_cfg, sde, sampler, cfg, cluster_poses,
+                        cond2d, conf, k, model_apply, stopwatch, generator, reproj_weight,
+                        compiled=True)
     return unfold_result(res, len(cluster_poses), cfg.oil.track_reproj)
 
 
@@ -214,7 +242,7 @@ def solve_sharded(mesh, params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: 
                   model_apply=None, generator=None, data_axis: str = "data", row_mask=None,
                   stopwatch=None) -> SolveResult:
     """The solve on a mesh: every rank passes the same global inputs (SPMD),
-    solves its block of the N poses over `data_axis` with `solve` (weights
+    solves its block of the N poses over `data_axis` with `solve_jit` (weights
     and cluster poses replicated, the kernel on its own device), and gets
     the global [N, S, j, 3] result; ranks on other axes solve the same
     block. No collective runs inside the solve except, under
@@ -230,7 +258,7 @@ def solve_sharded(mesh, params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: 
     weight = _pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
     cond2d, conf, k, weight = shard_rows(mesh, data_axis, len(cond2d), cond2d, conf, k, weight)
     prebuild_kernel(mesh, params, model_cfg)
-    res = solve(params, model_cfg, sde, sampler, cfg, cluster_poses, cond2d, conf, k,
-                model_apply=model_apply, stopwatch=stopwatch, generator=generator,
-                reproj_weight=weight)
+    res = solve_jit(params, model_cfg, sde, sampler, cfg, cluster_poses, cond2d, conf, k,
+                    model_apply=model_apply, generator=generator, reproj_weight=weight,
+                    stopwatch=stopwatch)
     return gather_result(reduce_trace(res, mesh, data_axis), mesh, data_axis)
