@@ -106,6 +106,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rows, comp3d --jlist 14,15,16 (the known joints end at the
      condition's marginal mean at eps) and den on those samples, --sampler
      ode at 1,024 (its NFE), --guide sym and --guide match at 1,024;
+ 11b. the JAX package's remaining compiled programs against their eager
+     oracles (phase_compiled_programs), in turns from the same state and
+     seeds, each bit-equal: 20 + 20 train steps (diffusion/losses.py's
+     step, one CUDA graph a step on the state's own tensors) at 5,000 and
+     50,000 rows in fp32 and bf16 at the published width with dropout 0.1,
+     and at make_trained_fixture's 512 rows of hidden 256; sample_loop_jit
+     (a graph a step) for `gen` at 10,000 rows x 100 steps and at 1,024 rows
+     x 1000 steps guided by `sym` and with comp3d imputation, the
+     generator's state after it; ODESampler.sample_jit at 1,024 rows (chunks
+     of masked RK45 steps, one host read a chunk; NFE equal);
+     multi_hypothesis_eval's P1 and P2 at 886 x 50 (the SVD between two
+     graphs); predict at the serving buckets against an eager
+     rank-and-pack in the same turns, p50 beside SERVING_P50_BEFORE_MS.
+     Ms a step, first calls, host dispatches (torch.profiler) and busy
+     shares printed. Phases 6, 7 and 10-13 reach these programs through
+     their entry points;
  12. multi-GPU on the one card (phase_multigpu), at the published width
      with seeded weights and the full schedule: world size 1 over NCCL
      (solve_sharded at 886 x 50 bit-identical to pipeline.solve, kernel #1
@@ -295,7 +311,11 @@ HOST_DISPATCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def fail(msg: str) -> None:
+    """Print the failure on standard output, beside the log, and on standard
+    error too, so that a run whose error stream alone is kept still says
+    why it failed; exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -446,6 +466,8 @@ def phase_build(torch, build, sk, split):
             sizes = [n for k, n in instructions.items() if label in k]
             if sizes:
                 log(f"  {label}: {len(sizes)} kernels of {min(sizes)}-{max(sizes)} instructions")
+        log(f"  libzedo_{name}.so: {sum(instructions.values())} instructions in "
+            f"{len(instructions)} kernels")
         largest = max((n for k, n in instructions.items() if "score_mlp_split" in k), default=0)
         if name == "score_mlp_split" and not 0 < largest <= MAX_SPLIT_INSTRUCTIONS:
             fail(f"a kernel of libzedo_{name}.so has {largest} instructions: its tile loop no "
@@ -1979,6 +2001,334 @@ def phase_sampling(torch, sk, split, tsm, card):
     return result
 
 
+# phase_compiled_programs: K train steps of each mode at the mini config's
+# batch and bench_train's (published width, dropout 0.1), in fp32 and bf16,
+# and at make_trained_fixture's shape (hidden 256, embed 128, positional
+# embedding, no dropout, 512 rows); the sampler's shortened `gen`, then the
+# full schedule guided and with comp3d imputation; the ODE; the evaluation
+# at 886 x 50; predict at the serving buckets
+PROGRAM_TRAIN = ((5000, "fp32", 1024), (5000, "bf16", 1024), (50000, "fp32", 1024),
+                 (50000, "bf16", 1024), (512, "fp32", 256))
+PROGRAM_TRAIN_STEPS = 20
+PROGRAM_GEN_STEPS, PROGRAM_FULL_STEPS = 100, 1000
+# predict's p50 (ms) at the serving buckets on an H100 at 700 W with the
+# solve compiled and the rank-and-pack eager (phase 5b of an earlier run)
+SERVING_P50_BEFORE_MS = {1280: 214.5, 160: 49.7}
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """The compiled programs of this phase's entry points swapped for their
+    eager oracles: the evaluation's hypothesis errors and serving's
+    rank-and-pack (the solve stays compiled)."""
+    from zedo_tpu_torch import serving
+    from zedo_tpu_torch.data import evaluation
+
+    saved = evaluation._hypothesis_errors_jit, serving._rank_and_pack_jit
+    evaluation._hypothesis_errors_jit = evaluation._hypothesis_errors
+    serving._rank_and_pack_jit = serving._rank_and_pack
+    try:
+        yield
+    finally:
+        evaluation._hypothesis_errors_jit, serving._rank_and_pack_jit = saved
+
+
+def same_train_state(torch, a, b) -> bool:
+    """Params, EMA (shadows and count), Adam's moments and step counts and the
+    host step, bit for bit."""
+    if a.step != b.step or not torch.equal(a.ema.num_updates, b.ema.num_updates):
+        return False
+    for tree_a, tree_b in ((a.params, b.params), (a.ema.shadow_params, b.ema.shadow_params)):
+        fa, fb = flat_params(tree_a), flat_params(tree_b)
+        if any(not torch.equal(fa[k], fb[k]) for k in fa):
+            return False
+    for (_, pa), (_, pb) in zip(a.leaves(), b.leaves()):
+        sa, sb = a.opt_state.state.get(pa, {}), b.opt_state.state.get(pb, {})
+        if sa.keys() != sb.keys() or any(not torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    return True
+
+
+def phase_compiled_programs(torch, sk, split, tsm, card, dev):
+    """The JAX package's remaining compiled programs (diffusion/losses.py's
+    train step, PCSampler.sample_loop_jit, ODESampler.sample_jit, the
+    evaluation's _hypothesis_errors_jit, serving's _rank_and_pack_jit: CUDA
+    graphs of utils/compiled.py) against their eager oracles, in turns from
+    the same state and seeds, each bit-equal: (a) PROGRAM_TRAIN_STEPS train
+    steps at 5,000 and 50,000 rows in fp32 and bf16 and at the fixture
+    tool's 512 rows of hidden 256, then as many again in the other order,
+    ms a step, the compiled first call, host dispatches and busy share of a
+    step; (b) sample_loop: `gen` at 10,000 rows for 100 steps, then at 1,024
+    rows the full 1000 steps with --guide sym and with comp3d imputation, ms
+    a step, host dispatches and busy share of a call; (c) the probability
+    flow ODE at 1,024 rows, samples and NFE, seconds and host reads a call;
+    (d) multi_hypothesis_eval at 886 x 50, P1 and P2; (e) predict at the
+    serving buckets, its packed outputs against an eager rank-and-pack, p50
+    beside SERVING_P50_BEFORE_MS. No kernel is launched but by (e)'s solves."""
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.data import evaluation
+    from zedo_tpu_torch.diffusion import losses as losses_lib
+    from zedo_tpu_torch.diffusion.guidance import get_sym_gradient_fn
+    from zedo_tpu_torch.diffusion.ode import ODESampler
+    from zedo_tpu_torch.diffusion.sampling import PCSampler, make_task_mask
+    from zedo_tpu_torch.diffusion.score import get_score_fn
+    from zedo_tpu_torch.diffusion.sde import build_sde
+    from zedo_tpu_torch.serving import ZeDOEstimator
+    from zedo_tpu_torch.presets import Config
+    from zedo_tpu_torch.utils import compiled
+
+    result = {"card": card, "train": {}, "sampling": {}}
+    parts = {}
+    t_part = time.perf_counter()
+    sk.reset_launch_counts()
+    split.reset_launch_counts()
+
+    # (a) the train step
+    optimizer = losses_lib.get_optimizer(Config(optim=Config(
+        optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8, warmup=5000, grad_clip=1.0,
+        weight_decay=0)))
+    sde = build_sde("subvpsde", n=1000, t_max=1.0)
+    for rows, dtype, hidden in PROGRAM_TRAIN:
+        if hidden == 1024:
+            cfg = tsm.ScoreMLPConfig(dropout=0.1)
+        else:
+            cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128, embedding_type="positional",
+                                     dropout=0.0)
+
+        def model(p, x, labels, cond, msk, train=False, generator=None, cfg=cfg):
+            return tsm.apply(p, cfg, x, labels, cond, msk, train=train, generator=generator)
+
+        apply = losses_lib.mixed_precision_apply(model) if dtype == "bf16" else model
+        steps = {mode: losses_lib.get_step_fn(sde, apply, optimizer, train=True, reduce_mean=True,
+                                              compiled=mode == "compiled")
+                 for mode in ("eager", "compiled")}
+        params = tsm.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        states = {mode: losses_lib.init_train_state(params, optimizer, 0.9999)
+                  for mode in steps}
+        batch = torch.from_numpy(np.random.RandomState(rows).randn(rows, 17, 3).astype(
+            np.float32) * 0.3).to(dev)
+        done = {"eager": 0, "compiled": 0}
+        losses = {"eager": [], "compiled": []}
+
+        def run(mode, k):
+            for _ in range(k):
+                gen = torch.Generator(dev).manual_seed(1000 + done[mode])
+                _, loss = steps[mode](states[mode], gen, batch)
+                losses[mode].append(loss)
+                done[mode] += 1
+
+        compiled.clear_cache()
+        _, first = timed(torch, lambda: run("compiled", 1))
+        run("eager", 1)
+        ms = {"eager": [], "compiled": []}
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            _, secs = timed(torch, lambda: run(mode, PROGRAM_TRAIN_STEPS))
+            ms[mode].append(secs / PROGRAM_TRAIN_STEPS * 1e3)
+        same_losses = all(torch.equal(a, b) for a, b in zip(losses["eager"], losses["compiled"]))
+        if not (same_losses and same_train_state(torch, states["eager"], states["compiled"])):
+            fail(f"compiled train step {rows} rows {dtype} hidden {hidden}: not bit-equal to the "
+                 f"eager step after {done['eager']} steps (losses equal {same_losses})")
+        prof = {mode: profiled(torch, lambda mode=mode: run(mode, 3)) for mode in steps}
+        key = f"{rows}_{dtype}_h{hidden}"
+        result["train"][key] = {
+            "ms_eager": ms["eager"], "ms_compiled": ms["compiled"], "first_call_s": first,
+            "steps": done["compiled"], "loss": float(losses["compiled"][-1]),
+            **{f"{mode}_dispatches_per_step": sum(p[2].values()) / 3 for mode, p in prof.items()},
+            **{f"{mode}_busy": p[1] / p[0] for mode, p in prof.items()}}
+        r = result["train"][key]
+        log(f"compiled train step, {rows} rows {dtype} hidden {hidden}, on {card}: "
+            f"{done['compiled']} steps each way, bit-equal (losses, params, Adam, EMA); ms a "
+            f"step eager {ms['eager']}, compiled {ms['compiled']} (first call, with capture, "
+            f"{first:.3f} s); host dispatches a step {r['eager_dispatches_per_step']:.0f} eager, "
+            f"{r['compiled_dispatches_per_step']:.0f} compiled; busy {r['eager_busy']:.3f} "
+            f"eager, {r['compiled_busy']:.3f} compiled")
+        del states, steps
+        compiled.clear_cache()
+        torch.cuda.empty_cache()
+    parts["train"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) sample_loop and (c) the ODE, on seeded published-width weights
+    config = presets.optim_config("h36m")
+    cfg = tsm.ScoreMLPConfig()
+    params = tsm.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    full_sde = build_sde(config.training.sde, n=config.model.num_scales, t_max=1.0)
+
+    def score_for(sde):
+        """The eager oracles' score: get_score_fn over the same weights."""
+        return get_score_fn(sde, lambda x, l, c, m: tsm.apply(params, cfg, x, l, c, m),
+                            continuous=True)
+
+    def sampler_for(n):
+        s = config.sampling
+        return PCSampler(sde=dataclasses.replace(full_sde, n=n), predictor=s.predictor.lower(),
+                         corrector=s.corrector.lower(), snr=s.snr, n_steps=s.n_steps_each,
+                         probability_flow=False, continuous=True, denoise=s.noise_removal,
+                         eps=1e-3)
+
+    rs = np.random.RandomState(11)
+    cond = torch.from_numpy(rs.randn(SAMPLE_GUIDE, 17, 3).astype(np.float32) * 0.3).to(dev)
+    mask = torch.from_numpy(make_task_mask("comp3d", (SAMPLE_GUIDE, 17, 3),
+                                           jlist="14,15,16")).to(dev)
+    cases = (("gen", SAMPLE_GEN, PROGRAM_GEN_STEPS, {}),
+             ("guide_sym", SAMPLE_GUIDE, PROGRAM_FULL_STEPS,
+              {"guidance_fn": get_sym_gradient_fn(1.0)}),
+             ("comp3d", SAMPLE_GUIDE, PROGRAM_FULL_STEPS, {"condition": cond, "mask": mask}))
+    for name, rows, n, kw in cases:
+        sampler = sampler_for(n)
+        shape = (rows, 17, 3)
+
+        def sample(mode, sampler=sampler, shape=shape, kw=kw):
+            gen = torch.Generator(dev).manual_seed(21)
+            with torch.no_grad():
+                if mode == "eager":
+                    out = sampler.sample_loop(score_for(sampler.sde), gen, shape, **kw)
+                else:
+                    out = sampler.sample_loop_jit(tsm.apply, params, cfg, gen, shape, **kw)
+            return out, gen.get_state()
+
+        compiled.clear_cache()
+        (got, state), first = timed(torch, lambda: sample("compiled"))
+        secs = {"eager": [], "compiled": []}
+        # the full schedule's eager loop takes 4-8 s: one turn each way there
+        turns = (("eager", "compiled", "compiled", "eager") if n == PROGRAM_GEN_STEPS
+                 else ("eager", "compiled"))
+        for mode in turns:
+            (out, out_state), s = timed(torch, lambda mode=mode: sample(mode))
+            secs[mode].append(s)
+            if not (torch.equal(out, got) and torch.equal(out_state, state)):
+                fail(f"compiled sample_loop {name}: the {mode} run is not bit-equal to the first "
+                     f"compiled call (or leaves the generator elsewhere)")
+        if not torch.isfinite(got).all():
+            fail(f"compiled sample_loop {name}: non-finite samples")
+        # the eager loop's trace at 1000 guided steps (~10^5 events) takes a
+        # minute to read: the eager dispatches are profiled at `gen` only
+        prof = {"compiled": profiled(torch, lambda: sample("compiled"))}
+        if name == "gen":
+            prof["eager"] = profiled(torch, lambda: sample("eager"))
+        r = result["sampling"][name] = {
+            "rows": rows, "steps": n, "first_call_s": first,
+            **{f"ms_per_step_{mode}": [s / n * 1e3 for s in v] for mode, v in secs.items()},
+            **{f"{mode}_dispatches": sum(p[2].values()) for mode, p in prof.items()},
+            **{f"{mode}_busy": p[1] / p[0] for mode, p in prof.items()}}
+        log(f"compiled sample_loop {name}, {rows} rows x {n} steps, on {card}: bit-equal, the "
+            f"generator where eager leaves it; ms a step eager "
+            f"{[round(v, 4) for v in r['ms_per_step_eager']]}, compiled "
+            f"{[round(v, 4) for v in r['ms_per_step_compiled']]} (first call {first:.3f} s); "
+            + "; ".join(f"profiled {mode} call: {dispatch_line(*p)}" for mode, p in prof.items()))
+    parts["sampling"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    ode = ODESampler(sde=full_sde, shape=(SAMPLE_ODE, 17, 3), denoise=True, eps=1e-3)
+    z = torch.randn(ode.shape, generator=torch.Generator(dev).manual_seed(31), device=dev)
+
+    def integrate(mode):
+        before = compiled.host_reads()
+        with torch.no_grad():
+            if mode == "eager":
+                out = ode.sample(score_for(full_sde), z=z)
+            else:
+                out = ode.sample_jit(tsm.apply, params, cfg, z=z)
+        return out, compiled.host_reads() - before
+
+    compiled.clear_cache()
+    ((want, nfe), _), first = timed(torch, lambda: integrate("compiled"))
+    secs, reads = {"eager": [], "compiled": []}, {}
+    for mode in ("eager", "compiled"):
+        ((x, x_nfe), reads[mode]), s = timed(torch, lambda mode=mode: integrate(mode))
+        secs[mode].append(s)
+        if not (torch.equal(x, want) and x_nfe == nfe):
+            fail(f"compiled ODE: the {mode} run is not bit-equal (NFE {x_nfe} against {nfe})")
+    result["ode"] = {"rows": SAMPLE_ODE, "nfe": nfe, "first_call_s": first, "s": secs,
+                     "condition_reads": reads, "host_reads_per_call": reads["compiled"] + 1}
+    log(f"compiled ODE, {SAMPLE_ODE} rows, on {card}: NFE {nfe} each way, bit-equal; s eager "
+        f"{secs['eager']}, compiled {secs['compiled']} (first call {first:.3f} s); host reads a "
+        f"call {reads['eager'] + 1} eager, {reads['compiled'] + 1} compiled (one a chunk of "
+        f"steps, and the NFE; the eager loop before this slice read one a step: "
+        f"{(nfe - 1) // 7})")
+    parts["ode"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) the evaluation at 886 x 50
+    rs = np.random.RandomState(41)
+    gt = (rs.randn(HEADLINE_N, 17, 3) * 0.3).astype(np.float32)
+    gt -= gt[:, :1]
+    preds = torch.from_numpy((gt[:, None] + rs.randn(HEADLINE_N, HEADLINE_S, 17, 3) * 0.05)
+                             .astype(np.float32)).to(dev)
+    actions = np.arange(HEADLINE_N) % 15 + 2
+    reports = {}
+    secs = {"eager": [], "compiled": []}
+    for mode in ("compiled", "eager", "compiled", "compiled", "eager"):
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(eager_programs())
+            out, s = timed(torch, lambda: [evaluation.multi_hypothesis_eval(
+                preds, gt, protocol2=p2, actions=actions) for p2 in (False, True)])
+        secs[mode].append(s)
+        reports.setdefault(mode, out)
+        for a, b in zip(out, reports["compiled"]):
+            if not (a.error == b.error and np.array_equal(a.per_sample_min, b.per_sample_min)
+                    and np.array_equal(a.min_hypothesis, b.min_hypothesis)):
+                fail(f"compiled evaluation at {HEADLINE_N} x {HEADLINE_S}: the {mode} run's "
+                     f"P1/P2 are not bit-equal")
+    p1, p2 = (r.error for r in reports["compiled"])
+    result["evaluation"] = {"s_eager": secs["eager"], "s_compiled": secs["compiled"][1:],
+                            "first_call_s": secs["compiled"][0], "p1": p1, "p2": p2}
+    log(f"compiled evaluation, {HEADLINE_N} x {HEADLINE_S}, on {card}: P1 {p1 * 1000:.4f} mm, "
+        f"P2 {p2 * 1000:.4f} mm, bit-equal each way (the SVD between the two graphs); s (P1 and "
+        f"P2) eager {secs['eager']}, compiled {secs['compiled'][1:]} (first call "
+        f"{secs['compiled'][0]:.3f} s)")
+    if any(sk.launch_counts.values()) or any(split.launch_counts.values()):
+        fail(f"phase compiled programs: kernels launched before predict: {sk.launch_counts}, "
+             f"{split.launch_counts}")
+    parts["evaluation"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (e) predict at the serving buckets
+    from zedo_tpu_torch import bench as bench_lib
+
+    preset = presets.h36m()
+    bparams = to_bf16(torch, params)
+    px, conf, k, clusters = bench_lib.build_inputs(SERVING_BUCKETS[0], SERVING_HYPO)
+    result["serving"] = {}
+    for bucket, schedule in zip(SERVING_BUCKETS, ("full", "low_latency")):
+        est = ZeDOEstimator(params=bparams, model_cfg=cfg, sde=preset.sde, sampler=preset.sampler,
+                            zcfg=preset.zcfg, clusters=clusters, device=dev,
+                            batch_bucket=bucket)
+        if schedule == "low_latency":
+            est = est.low_latency()
+
+        def predict(est=est, bucket=bucket):
+            return est.predict(px[:bucket], k[:bucket], confidence=conf[:bucket])
+
+        want, first = timed(torch, predict)
+        secs = {"eager": [], "compiled": []}
+        for _ in range(COMPILED_REPS):
+            for mode in ("eager", "compiled"):
+                with contextlib.ExitStack() as stack:
+                    if mode == "eager":
+                        stack.enter_context(eager_programs())
+                    out, s = timed(torch, predict)
+                secs[mode].append(s)
+                for key, value in want.items():
+                    if not np.array_equal(out[key], value):
+                        fail(f"predict at bucket {bucket}: the {mode} rank-and-pack's {key} is "
+                             f"not bit-equal")
+        rows = bucket * SERVING_HYPO
+        p50 = {mode: float(np.median(v)) * 1e3 for mode, v in secs.items()}
+        result["serving"][rows] = {"schedule": schedule, "s": secs, "first_s": first,
+                                   "p50_ms": p50, "p50_before_ms": SERVING_P50_BEFORE_MS[rows]}
+        log(f"predict at {bucket} x {SERVING_HYPO} = {rows} rows ({schedule}) on {card}: packed "
+            f"outputs bit-equal to an eager rank-and-pack; p50 {p50['compiled']:.1f} ms compiled "
+            f"rank-and-pack, {p50['eager']:.1f} ms eager (before: "
+            f"{SERVING_P50_BEFORE_MS[rows]} ms)")
+    compiled.clear_cache()
+    parts["serving"] = time.perf_counter() - t_part
+    result["part_s"] = parts
+    log(f"phase compiled programs, seconds by part: {parts}")
+    return result
+
+
 # the multi-GPU phase: two ranks share the one card over Gloo
 MULTI_RANKS = 2
 SERVE_POSES = 64
@@ -2711,6 +3061,10 @@ def main() -> int:
     sampling = phase_sampling(torch, sk, split, tsm, card)
     log(f"phase sampling: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    programs = phase_compiled_programs(torch, sk, split, tsm, card, dev)
+    programs["seconds"] = time.perf_counter() - t0
+    log(f"phase compiled programs: {programs['seconds']:.1f} s")
+    t0 = time.perf_counter()
     multigpu = phase_multigpu(torch, sk, tsm, card)
     entry["launches_multigpu"] = {
         "nccl_world_1": multigpu["nccl_world_1"]["launches"],
@@ -2743,6 +3097,7 @@ def main() -> int:
                       "batch_cli": batch_cli, "infant": infant, "training": training,
                       "sampling": sampling, "multigpu": multigpu, "rest": rest,
                       "config_files": config_files, "compiled": compiled,
+                      "compiled_programs": programs,
                       "build_s": build_s,
                       "poses": HEADLINE_N, "hypotheses": HEADLINE_S}), flush=True)
     print(card, flush=True)

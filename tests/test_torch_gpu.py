@@ -284,10 +284,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     batch = rs.randn(64, 17, 3).astype(np.float32) * 0.3
     u = rs.rand(64).astype(np.float32)
     z = rs.randn(64, 17, 3).astype(np.float32)
-    monkeypatch.setattr(tlosses, "_uniform",
-                        lambda gen, n, like: torch.from_numpy(u).to(like.device))
+    # the draws placed on each device before the steps: the compiled step's
+    # graph reads them there (a copy from the host cannot be captured)
+    placed = {(name, dev.type): torch.from_numpy(a).to(dev) for name, a in (("u", u), ("z", z))
+              for dev in (torch.device("cpu"), cuda_device)}
+    monkeypatch.setattr(tlosses, "_uniform", lambda gen, n, like: placed[("u", like.device.type)])
     monkeypatch.setattr(tlosses, "_randn",
-                        lambda gen, shape, like: torch.from_numpy(z).to(like.device))
+                        lambda gen, shape, like: placed[("z", like.device.type)])
     cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128, dropout=0.0)
     sde = SubVPSDE(t_max=0.1)
     params = tsm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -504,3 +507,235 @@ def test_ipo_corrections_apply_as_a_python_float_division(cuda_device):
         for step in (1, 2, 7, 100, 500):
             for col, decay in enumerate((ipo.B1, ipo.B2)):
                 assert torch.equal(xx * table[step - 1, col], xx / (1.0 - decay ** step))
+
+
+# ------------------------------------------------- the compiled programs
+
+
+def _train_states(dev, rows=256, hidden=256, dtype="fp32", seed=0):
+    """(eager step, compiled step, two TrainStates from one seeded init, the
+    batch) of a small ScoreMLP with dropout on."""
+    import numpy as np
+
+    from zedo_tpu_torch.diffusion import losses as tlosses
+    from zedo_tpu_torch.diffusion.sde import SubVPSDE
+    from zedo_tpu_torch.presets import Config
+
+    cfg = tsm.ScoreMLPConfig(hidden_dim=hidden, embed_dim=hidden // 2, dropout=0.1)
+    optimizer = tlosses.get_optimizer(Config(optim=Config(
+        optimizer="Adam", lr=2e-3, beta1=0.9, eps=1e-8, warmup=3, grad_clip=1.0,
+        weight_decay=0)))
+
+    def apply(p, x, labels, cond, msk, train=False, generator=None):
+        return tsm.apply(p, cfg, x, labels, cond, msk, train=train, generator=generator)
+
+    model = tlosses.mixed_precision_apply(apply) if dtype == "bf16" else apply
+    steps = [tlosses.get_step_fn(SubVPSDE(t_max=0.1), model, optimizer, train=True,
+                                 reduce_mean=True, compiled=c) for c in (False, True)]
+    params = tsm.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    states = [tlosses.init_train_state(params, optimizer, 0.999) for _ in range(2)]
+    batch = torch.from_numpy(np.random.RandomState(seed).randn(rows, 17, 3).astype(np.float32)
+                             * 0.3).to(dev)
+    return steps, states, batch
+
+
+def _same_state(a, b):
+    from zedo_tpu_torch.models.nn import tree_to_flat
+
+    for tree_a, tree_b in ((a.params, b.params), (a.ema.shadow_params, b.ema.shadow_params)):
+        fa, fb = tree_to_flat(tree_a), tree_to_flat(tree_b)
+        for name in fa:
+            assert torch.equal(fa[name], fb[name]), name
+    assert torch.equal(a.ema.num_updates, b.ema.num_updates)
+    for (_, pa), (_, pb) in zip(a.leaves(), b.leaves()):
+        sa, sb = a.opt_state.state[pa], b.opt_state.state[pb]
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[key], sb[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_compiled_train_steps_are_bit_equal_to_eager(cuda_device, dtype):
+    """5 train steps (warm-up from lr 0, clipping, fused capturable Adam,
+    EMA, dropout from the step's generator) at 256 rows: the compiled step's
+    graph replayed on the state's own tensors against the eager step, the
+    losses, params, Adam's moments and step counts and the EMA bit-equal,
+    and each step's generator where the eager step leaves it."""
+    from zedo_tpu_torch.utils import compiled
+
+    compiled.clear_cache()
+    steps, states, batch = _train_states(cuda_device, dtype=dtype)
+    losses = [[], []]
+    for i in range(5):
+        for k in range(2):
+            gen = torch.Generator(cuda_device).manual_seed(100 + i)
+            states[k], loss = steps[k](states[k], gen, batch)
+            losses[k].append((loss, gen.get_state()))
+    for (la, ga), (lb, gb) in zip(*losses):
+        assert torch.equal(la, lb) and torch.equal(ga, gb)
+    _same_state(*states)
+    assert states[1].step == 5
+    assert compiled.cache_info()["entries"] == 1
+    assert states[1].opt_state.param_groups[0]["capturable"] == (cuda_device.type == "cuda")
+
+
+def _sampling_inputs(dev, rows=64, steps=50):
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.diffusion.score import get_score_fn
+    from zedo_tpu_torch.diffusion.sde import SubVPSDE
+
+    cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128)
+    params = tsm.init_params(torch.Generator().manual_seed(3), cfg, device=dev)
+    sde = SubVPSDE(n=steps, t_max=1.0)
+
+    def score_fn(x, t, condition=None, mask=None):
+        return get_score_fn(sde, lambda *a: tsm.apply(params, cfg, *a), True)(x, t, condition,
+                                                                            mask)
+
+    sampler = PCSampler(sde=sde, corrector="langevin", probability_flow=False, eps=1e-3)
+    return cfg, params, sde, sampler, score_fn
+
+
+@pytest.mark.gpu
+def test_compiled_sample_loop_is_bit_equal_to_eager(cuda_device):
+    """sample_loop with a Langevin corrector, comp3d imputation, a warm start,
+    symmetry guidance and the trajectory at 64 rows x 50 steps: the compiled
+    scan (a CUDA graph a step, autograd's guidance inside it) against the
+    eager loop, bit-equal, the generator after it where the eager loop
+    leaves it; a second call with new weights of the same shapes captures
+    nothing anew."""
+    import numpy as np
+
+    from zedo_tpu_torch.diffusion import sampling
+    from zedo_tpu_torch.diffusion.guidance import get_sym_gradient_fn
+    from zedo_tpu_torch.utils import compiled
+
+    cfg, params, sde, sampler, score_fn = _sampling_inputs(cuda_device)
+    shape = (64, 17, 3)
+    cond = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda_device) * 0.3
+    mask = torch.from_numpy(sampling.make_task_mask("comp3d", shape, jlist="14,15,16")).to(
+        cuda_device)
+    kw = dict(condition=cond, mask=mask, warm_start_steps=5, return_trajectory=True)
+    compiled.clear_cache()
+    outs = []
+    for run in range(3):
+        gen = torch.Generator(cuda_device).manual_seed(9)
+        with torch.no_grad():
+            if run == 0:
+                out = sampler.sample_loop(score_fn, gen, shape,
+                                          guidance_fn=get_sym_gradient_fn(0.5), **kw)
+            else:
+                out = sampler.sample_loop_jit(tsm.apply, params, cfg, gen, shape,
+                                              guidance_fn=get_sym_gradient_fn(0.5), **kw)
+        outs.append((out, gen.get_state()))
+    for (trajs, x), state in outs[1:]:
+        assert torch.equal(trajs, outs[0][0][0]) and torch.equal(x, outs[0][0][1])
+        assert torch.equal(state, outs[0][1])
+    assert torch.isfinite(outs[0][0][1]).all()
+    new = tree_map(lambda a: a * 0.5, params)
+    with torch.no_grad():
+        got = sampler.sample_loop_jit(tsm.apply, new, cfg, torch.Generator(cuda_device), shape,
+                                      guidance_fn=get_sym_gradient_fn(0.5), **kw)[1]
+    assert compiled.cache_info() == {**compiled.cache_info(), "entries": 1, "misses": 1}
+    assert not torch.equal(got, outs[0][0][1])
+    assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.gpu
+def test_compiled_rk45_takes_the_eager_steps(cuda_device):
+    """The probability-flow ODE at 64 rows: the compiled while loop (chunks of
+    masked steps as CUDA graphs, one host read a chunk) against the eager
+    one, the samples bit-equal and the NFE equal."""
+    from zedo_tpu_torch.diffusion import ode
+    from zedo_tpu_torch.utils import compiled
+
+    cfg, params, sde, _, score_fn = _sampling_inputs(cuda_device)
+    sampler = ode.ODESampler(sde=sde, shape=(64, 17, 3), denoise=True)
+    z = torch.randn(sampler.shape, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    compiled.clear_cache()
+    with torch.no_grad():
+        want, nfe = sampler.sample(score_fn, z=z)
+        reads = compiled.host_reads()
+        for _ in range(2):
+            got, got_nfe = sampler.sample_jit(tsm.apply, params, cfg, z=z)
+            assert torch.equal(got, want) and got_nfe == nfe
+    assert nfe % 7 == 1 and nfe > 8
+    assert compiled.host_reads() == 3 * reads
+    assert compiled.cache_info()["entries"] == 1
+
+
+@pytest.mark.gpu
+def test_compiled_evaluation_and_packing_are_bit_equal(cuda_device):
+    """The hypothesis errors (both protocols, both subset orders; the SVD
+    between the two graphs) and serving's rank-and-pack, compiled against
+    eager on the card."""
+    import numpy as np
+
+    from zedo_tpu_torch import serving
+    from zedo_tpu_torch.data import evaluation
+
+    rs = np.random.RandomState(2)
+    gt = torch.from_numpy((rs.randn(40, 17, 3) * 0.3).astype(np.float32)).to(cuda_device)
+    preds = gt[:, None] + torch.from_numpy((rs.randn(40, 6, 17, 3) * 0.05).astype(
+        np.float32)).to(cuda_device)
+    for protocol2 in (False, True):
+        for subset, first in ((None, True), ((1, 2, 3, 5, 9), True), ((1, 2, 3, 5, 9), False)):
+            want = evaluation._hypothesis_errors(preds, gt, protocol2, subset, first)
+            for _ in range(2):
+                got = evaluation._hypothesis_errors_jit(preds, gt, protocol2, subset, first)
+                assert torch.equal(got, want), (protocol2, subset, first)
+    k = torch.tensor([[1000.0, 0, 500], [0, 1000.0, 500], [0, 0, 1]]).expand(40, 3, 3)
+    k = k.contiguous().to(cuda_device)
+    trans = torch.zeros(40, 6, 1, 3, device=cuda_device)
+    trans[..., 2] = 4.0
+    kp = torch.rand(40, 17, 2, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    want = serving._rank_and_pack(preds, trans, kp * 1000, k)
+    assert torch.equal(serving._rank_and_pack_jit(preds, trans, kp * 1000, k), want)
+
+
+CAPTURES_FAIL = """
+import functools, sys, torch
+from zedo_tpu_torch.utils import compiled
+
+def body(carry, consts, ys, counter, generator, variant):
+    host = torch.tensor([2.0])  # pageable host memory, copied in the step
+    return {"x": carry["x"] + host.to(carry["x"].device)}
+
+def going(carry, consts):
+    return carry["x"].sum() < 10
+
+name = sys.argv[1]
+calls = {"step": lambda c: compiled.step(functools.partial(body), c, {}, compiled=True,
+                                         donate=True),
+         "while_loop": lambda c: compiled.while_loop(going, functools.partial(body), c, {},
+                                                     compiled=True)}
+carry = {"x": torch.zeros(4, device="cuda")}
+try:
+    calls[name](carry)
+except Exception as exc:
+    assert compiled.cache_info()["entries"] == 0, compiled.cache_info()
+    assert torch.equal(carry["x"], torch.zeros(4, device="cuda")), name
+    print("raised", name, type(exc).__name__)
+    sys.exit(0)
+print("no error: the capture ran", name)
+sys.exit(1)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("program", ["step", "while_loop"])
+def test_failed_captures_of_step_and_while_loop_raise(cuda_device, program):
+    """A donated compiled step and a compiled while loop whose capture fails
+    (the body copies pageable host memory to the card) raise, cache nothing
+    and leave the caller's carry as it was (the donated step's warm-up put
+    back): nothing falls back to the eager loop. Each in a process of its
+    own."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", CAPTURES_FAIL, program], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised" in out.stdout

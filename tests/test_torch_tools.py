@@ -206,3 +206,22 @@ arch = sm_90a
 """
     assert build.count_sass_instructions(dump) == {"_Z6kernelPf": 3, "_Z5otherv": 1}
     assert build.count_sass_instructions("") == {}
+
+
+def test_repeat_check_holds_each_run_to_the_first(capsys):
+    """tools.repeat_check on the CPU at a tiny size: every kernel case, both
+    solves and both serving buckets run again and equal their first run bit
+    for bit; the first profiled request and the later ones are reported (the
+    CPU trace holds no device event); the last line is the JSON record."""
+    from zedo_tpu_torch.tools import repeat_check
+
+    res = repeat_check.main(["--device", "cpu", "--scale", "0.0001", "--kernel-rows", "3",
+                             "--rows", "2", "--hypo", "2", "--hidden", "64", "--oil", "3",
+                             "--ipo", "3"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
+    runs = {name: r for name, r in res.items() if name != "profiled_request"}
+    assert len(runs) == 2 * len(repeat_check.KERNEL_CASES) + len(repeat_check.SOLVES) + 2
+    assert all(r["runs"] >= 1 and r["differed"] == 0 for r in runs.values())
+    assert [p["request"] for p in res["profiled_request"]] == ["first", "replay"]
+    assert all(p["kernel_1_launches"] == 0 == p["device_events"]
+               for p in res["profiled_request"])

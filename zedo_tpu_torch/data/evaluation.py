@@ -5,10 +5,18 @@ protocol-2 Procrustes alignment included (one batch of 3x3 SVDs), is
 computed in f32 on the device of the predictions: a CUDA tensor keeps it on
 the card, a numpy array or CPU tensor on the CPU. Only the reduced scalars
 and the [N] vectors come back to the host for the action-wise report.
+
+`multi_hypothesis_eval` computes the errors with `_hypothesis_errors_jit`
+(JAX's jitted `_hypothesis_errors`), compiled calls keyed by the shapes,
+protocol2, the joint subset and its order (utils/compiled.py): protocol 1 as
+one, protocol 2 as procrustes.aligned_batched's two around the alignment's
+SVD, the joint subset and the errors inside them. `_hypothesis_errors` runs
+the same products eagerly, the oracle.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -17,7 +25,8 @@ import torch
 from zedo_tpu_torch.ops.metrics import (
     auc_from_errors, joint_errors_mm, min_over_hypotheses, mpjpe, pck_from_errors,
 )
-from zedo_tpu_torch.ops.procrustes import align_to_gt_batched
+from zedo_tpu_torch.ops.procrustes import aligned_batched, procrustes
+from zedo_tpu_torch.utils import compiled as compiled_lib
 from zedo_tpu_torch.utils.table import Table
 
 
@@ -32,17 +41,57 @@ class EvalReport:
     hypo_std: Optional[tuple] = None  # per-axis hypothesis std (x, y, z)
 
 
-def _hypothesis_errors(preds, gt, protocol2: bool, joint_subset, subset_before_align):
-    """[N, S, j, 3] preds vs [N, j, 3] gt -> [N, S] mean per-joint errors."""
+def _inputs(consts, *, subset_first: bool):
+    """The predictions and the broadcast gt, on the subset where it comes
+    before the alignment."""
+    preds, gt, idx = consts["preds"], consts["gt"], consts["idx"]
     gt_b = gt[:, None].expand(preds.shape)
+    if idx is not None and subset_first:
+        preds, gt_b = preds[:, :, idx], gt_b[:, :, idx]
+    return preds, gt_b
+
+
+def _scored(consts, preds, gt_b, *, subset_first: bool):
+    """The errors, on the subset where it comes after the alignment."""
+    idx = consts["idx"]
+    if idx is not None and not subset_first:
+        preds, gt_b = preds[:, :, idx], gt_b[:, :, idx]
+    return {"errors": mpjpe(preds, gt_b)}
+
+
+def _errors_body(carry, consts, ys, counter, generator, variant, *, subset_first: bool):
+    """Protocol 1's errors."""
+    preds, gt_b = _inputs(consts, subset_first=subset_first)
+    return _scored(consts, preds, gt_b, subset_first=subset_first)
+
+
+def _consts(preds, gt, joint_subset) -> dict:
     idx = None if joint_subset is None else torch.as_tensor(joint_subset, device=preds.device)
-    if idx is not None and subset_before_align:
-        preds, gt_b = preds[:, :, idx], gt_b[:, :, idx]
+    return {"preds": preds, "gt": gt, "idx": idx}
+
+
+def _hypothesis_errors(preds, gt, protocol2: bool, joint_subset, subset_before_align):
+    """[N, S, j, 3] preds vs [N, j, 3] gt -> [N, S] mean per-joint errors,
+    eagerly: the oracle of `_hypothesis_errors_jit`."""
+    consts = _consts(preds, gt, joint_subset)
+    preds, gt_b = _inputs(consts, subset_first=subset_before_align)
     if protocol2:
-        preds = align_to_gt_batched(preds, gt_b)
-    if idx is not None and not subset_before_align:
-        preds, gt_b = preds[:, :, idx], gt_b[:, :, idx]
-    return mpjpe(preds, gt_b)
+        j, d = preds.shape[-2:]
+        preds = procrustes(gt_b.reshape(-1, j, d), preds.reshape(-1, j, d)).z.reshape(
+            preds.shape)
+    return _scored(consts, preds, gt_b, subset_first=subset_before_align)["errors"]
+
+
+def _hypothesis_errors_jit(preds, gt, protocol2: bool, joint_subset, subset_before_align):
+    """`_hypothesis_errors` compiled."""
+    consts = _consts(preds, gt, joint_subset)
+    if not protocol2:
+        out, _ = compiled_lib.step(
+            functools.partial(_errors_body, subset_first=subset_before_align), None, consts,
+            compiled=True)
+        return out["errors"]
+    return aligned_batched(consts, functools.partial(_inputs, subset_first=subset_before_align),
+                           functools.partial(_scored, subset_first=subset_before_align))["errors"]
 
 
 def _valid_mask(valid_ind, n: int, s: int) -> np.ndarray:
@@ -100,7 +149,7 @@ def multi_hypothesis_eval(
     preds is a tensor (evaluated on its device) or an array (on the CPU)."""
     preds = torch.as_tensor(preds, dtype=torch.float32)
     gt = torch.as_tensor(gt, dtype=torch.float32, device=preds.device)
-    errors = _hypothesis_errors(
+    errors = _hypothesis_errors_jit(
         preds, gt, protocol2, None if joint_subset is None else tuple(joint_subset),
         subset_before_align)
     if valid_ind is not None:

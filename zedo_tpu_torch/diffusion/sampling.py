@@ -4,6 +4,16 @@ step at an external time), `PCSampler.sample_loop` (the full N-step sampler
 with the legacy task modes' imputation, warm start and guidance),
 `make_task_mask` and `get_sampling_fn`.
 
+`sample_loop` is one scan body a step (utils/compiled.py; JAX's one
+`lax.scan`): the step reads its time from a device table (the warm start's
+steps hold sde.T there) and writes the trajectory at the step counter.
+`sample_loop(score_fn, ...)` runs it eagerly, the oracle;
+`sample_loop_jit(model_apply, params, model_cfg, ...)` runs it compiled, a
+CUDA graph replayed once a step on the card, cached by the sampler, the
+model's static arguments, the guidance objective and the shapes: the params
+are copied into its buffers, so new weights of the same shapes (a new EMA)
+capture nothing anew.
+
 Predictors and correctors are pure functions in registries. Noise comes
 from an explicit `torch.Generator` that the caller passes in, never from the
 global one, and is drawn in call order (the corrector's, then the
@@ -15,6 +25,7 @@ an update deterministic, no noise is drawn.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
@@ -22,7 +33,9 @@ import numpy as np
 import torch
 
 from zedo_tpu_torch.diffusion.ode import ODESampler
+from zedo_tpu_torch.diffusion.score import given_score, model_score
 from zedo_tpu_torch.diffusion.sde import SDE, VESDE, VPSDE, ReverseSDE, SubVPSDE, _bcast, _randn
+from zedo_tpu_torch.utils import compiled as compiled_lib
 
 _PREDICTORS: dict[str, Callable] = {}
 _CORRECTORS: dict[str, Callable] = {}
@@ -196,7 +209,42 @@ class PCSampler:
         once on the final x_mean; guidance_condition (default `condition`)
         is its cond. return_trajectory: also return the [n, *shape] states,
         the last entry the (guided) denoised x_mean. Returns x_mean when
-        the sampler denoises, else x."""
+        the sampler denoises, else x. The steps run eagerly: the oracle of
+        `sample_loop_jit`."""
+        return self._loop(functools.partial(given_score, score_fn=score_fn), {}, gen, shape,
+                          condition, mask, x_init, warm_start_steps, return_trajectory,
+                          guidance_fn, guidance_condition, compiled=False)
+
+    def sample_loop_jit(self, model_apply, params: dict, model_cfg, gen: torch.Generator, shape,
+                        condition=None, mask=None, x_init: Optional[torch.Tensor] = None,
+                        warm_start_steps: int = 0, return_trajectory: bool = False,
+                        guidance_fn=None, guidance_condition=None,
+                        continuous: Optional[bool] = None):
+        """`sample_loop` of the score of model_apply(params, model_cfg, x,
+        labels, condition, mask) (get_score_fn's, continuous by default as
+        the sampler), compiled: JAX's jitted `lax.scan`, keyed by the
+        sampler, the model's static arguments and the shapes, the params
+        copied into its buffers."""
+        score = functools.partial(
+            model_score, sde=self.sde, model_apply=model_apply, model_cfg=model_cfg,
+            continuous=self.continuous if continuous is None else continuous)
+        return self._loop(score, {"params": params}, gen, shape, condition, mask, x_init,
+                          warm_start_steps, return_trajectory, guidance_fn, guidance_condition,
+                          compiled=True)
+
+    def time_table(self, warm_start_steps: int, like: torch.Tensor) -> torch.Tensor:
+        """[n] the time of each step: sde.T for the warm start's steps (not
+        the reference's literal 1.0: the ZeDO eval SDEs have T = 0.1), then
+        the linspace from sde.T to eps."""
+        timesteps = torch.linspace(self.sde.T, self.eps, self.sde.n, dtype=like.dtype,
+                                   device=like.device)
+        steps = torch.arange(self.sde.n, device=like.device)
+        return torch.where(steps < warm_start_steps,
+                           torch.as_tensor(self.sde.T, dtype=like.dtype, device=like.device),
+                           timesteps)
+
+    def _loop(self, score, model_consts: dict, gen, shape, condition, mask, x_init,
+              warm_start_steps, return_trajectory, guidance_fn, guidance_condition, compiled):
         if x_init is None:
             x = self.sde.prior_sampling(
                 gen, torch.empty(shape, dtype=torch.float32, device=gen.device))
@@ -204,55 +252,69 @@ class PCSampler:
             x = x_init
         if mask is not None and condition is not None:
             x = x * (1 - mask) + condition * mask
-        timesteps = torch.linspace(self.sde.T, self.eps, self.sde.n, dtype=x.dtype,
-                                   device=x.device)
-        rsde = self.reverse(score_fn)
-        corrector_fn = get_corrector(self.corrector)
-        predictor_fn = get_predictor(self.predictor)
         g_cond = guidance_condition if guidance_condition is not None else condition
-
-        def impute(x, x_mean, vec_t):
-            if mask is None or condition is None:
-                return x, x_mean
-            masked_mean, std = self.sde.marginal_prob(condition, vec_t)
-            masked = masked_mean + _randn(gen, x.shape, x) * _bcast(std, x)
-            return x * (1 - mask) + masked * mask, x_mean * (1 - mask) + masked_mean * mask
-
-        def guide(x, vec_t):
-            g = guidance_fn(x, vec_t, g_cond)
-            # a scalar-returning objective (get_sym_grad_fn, the reference's
-            # loss-not-gradient quirk) would broadcast `x - scalar` and
-            # destroy the sample
-            if g.shape != x.shape:
-                raise ValueError(
-                    f"guidance_fn must return a per-coordinate gradient shaped like x "
-                    f"{tuple(x.shape)}, got {tuple(g.shape)}: pass a gradient (e.g. "
-                    f"get_sym_gradient_fn), not a loss")
-            return x - g
-
-        x_mean = x
-        trajs = []
-        for i in range(self.sde.n):
-            # pinned to sde.T, not the reference's literal 1.0 (the ZeDO
-            # eval SDEs have T = 0.1)
-            t = self.sde.T if i < warm_start_steps else timesteps[i]
-            vec_t = torch.as_tensor(t, dtype=x.dtype, device=x.device).expand(shape[0])
-            x, x_mean = corrector_fn(self.sde, score_fn, gen, x, vec_t, condition, mask,
-                                     self.snr, self.n_steps)
-            x, x_mean = impute(x, x_mean, vec_t)
-            x, x_mean = predictor_fn(rsde, gen, x, vec_t, condition, mask)
-            x, x_mean = impute(x, x_mean, vec_t)
-            if guidance_fn is not None:
-                x = guide(x, vec_t)
-            if return_trajectory:
-                trajs.append(x)
+        consts = {**model_consts, "ts": self.time_table(warm_start_steps, x),
+                  "condition": condition, "mask": mask, "guidance_condition": g_cond}
+        ys = ({"trajs": torch.zeros((self.sde.n,) + tuple(x.shape), dtype=x.dtype,
+                                    device=x.device)} if return_trajectory else {})
+        body = functools.partial(_pc_body, sampler=self, score=score, guidance=guidance_fn,
+                                 trajectory=return_trajectory)
+        carry, ys = compiled_lib.scan(body, (None,) * self.sde.n, {"x": x, "x_mean": x}, consts,
+                                      ys, gen, compiled=compiled)
+        x, x_mean = carry["x"], carry["x_mean"]
         if guidance_fn is not None:
-            x_mean = guide(x_mean, timesteps[-1].expand(shape[0]))
+            last = torch.linspace(self.sde.T, self.eps, self.sde.n, dtype=x.dtype,
+                                  device=x.device)[-1]
+            x_mean = _guide(guidance_fn, x_mean, last.expand(shape[0]), g_cond)
         x_final = x_mean if self.denoise else x
         if return_trajectory:
+            trajs = ys["trajs"]
             trajs[-1] = x_mean  # the reference's `trajs[-1] = x_mean`
-            return torch.stack(trajs), x_final
+            return trajs, x_final
         return x_final
+
+
+def _guide(guidance_fn, x, vec_t, g_cond):
+    """One descent step on the guidance objective's gradient."""
+    g = guidance_fn(x, vec_t, g_cond)
+    # a scalar-returning objective (get_sym_grad_fn, the reference's
+    # loss-not-gradient quirk) would broadcast `x - scalar` and destroy the
+    # sample
+    if g.shape != x.shape:
+        raise ValueError(
+            f"guidance_fn must return a per-coordinate gradient shaped like x "
+            f"{tuple(x.shape)}, got {tuple(g.shape)}: pass a gradient (e.g. "
+            f"get_sym_gradient_fn), not a loss")
+    return x - g
+
+
+def _pc_body(carry, consts, ys, counter, gen, variant, *, sampler: PCSampler, score, guidance,
+             trajectory: bool):
+    """One step of sample_loop (utils/compiled.py's contract): corrector,
+    imputation, predictor, imputation, guidance, the trajectory's entry."""
+    x = carry["x"]
+    score_fn = score(consts)
+    vec_t = consts["ts"].index_select(0, counter).expand(x.shape[0])
+    condition, mask = consts["condition"], consts["mask"]
+
+    def impute(x, x_mean):
+        if mask is None or condition is None:
+            return x, x_mean
+        masked_mean, std = sampler.sde.marginal_prob(condition, vec_t)
+        masked = masked_mean + _randn(gen, x.shape, x) * _bcast(std, x)
+        return x * (1 - mask) + masked * mask, x_mean * (1 - mask) + masked_mean * mask
+
+    x, x_mean = get_corrector(sampler.corrector)(sampler.sde, score_fn, gen, x, vec_t, condition,
+                                                 mask, sampler.snr, sampler.n_steps)
+    x, x_mean = impute(x, x_mean)
+    x, x_mean = get_predictor(sampler.predictor)(sampler.reverse(score_fn), gen, x, vec_t,
+                                                 condition, mask)
+    x, x_mean = impute(x, x_mean)
+    if guidance is not None:
+        x = _guide(guidance, x, vec_t, consts["guidance_condition"])
+    if trajectory:
+        ys["trajs"].index_copy_(0, counter, x[None])
+    return {"x": x, "x_mean": x_mean}
 
 
 # ----------------------------------------------------------- task masks

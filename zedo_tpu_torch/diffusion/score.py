@@ -68,3 +68,22 @@ def get_score_fn(sde: SDE, model_fn: ModelFn, continuous: bool = False):
         return score_from_out(eval_fn(x, t, condition, mask), x, t)
 
     return score_fn
+
+
+def given_score(consts, *, score_fn):
+    """A compiled body's score: a score function given as it is (the eager
+    samplers' `score_fn`, a closure over its weights)."""
+    return score_fn
+
+
+def model_score(consts, *, sde: SDE, model_apply, model_cfg, continuous: bool):
+    """A compiled body's score: get_score_fn of model_apply(params,
+    model_cfg, x, labels, condition, mask) over the weights in
+    consts["params"], which the compiled call copies into its buffers (new
+    weights of the same shapes replay the same graphs)."""
+    params = consts["params"]
+
+    def model_fn(x, labels, condition, mask):
+        return model_apply(params, model_cfg, x, labels, condition, mask)
+
+    return get_score_fn(sde, model_fn, continuous=continuous)

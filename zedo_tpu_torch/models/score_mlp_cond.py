@@ -12,6 +12,7 @@ output goes through dropout, all draws from the `generator` passed in.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -62,6 +63,14 @@ def part_mask_table(n_joints: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=16)
+def _part_masks(n_joints: int, device: torch.device) -> torch.Tensor:
+    """part_mask_table on `device`, copied there once: a copy from the host
+    in every train step would block it, and a compiled step's capture
+    refuses one."""
+    return torch.as_tensor(part_mask_table(n_joints), device=device)
+
+
 def random_mask_condition(generator: torch.Generator, condition: torch.Tensor,
                           cfg: ScoreMLPConfig, mask_cfg: CondMaskConfig) -> torch.Tensor:
     """Train-time condition dropout: whole-pose, body-part and per-joint
@@ -76,7 +85,7 @@ def random_mask_condition(generator: torch.Generator, condition: torch.Tensor,
         drop = bernoulli(mask_cfg.pose_mask_prob, (b, 1, 1))
         condition = condition * (1.0 - drop.to(condition.dtype))
     if mask_cfg.part_mask_prob > 0:
-        table = torch.as_tensor(part_mask_table(cfg.n_joints), device=dev)  # [p, j]
+        table = _part_masks(cfg.n_joints, dev)  # [p, j]
         sel = bernoulli(mask_cfg.part_mask_prob, (b, table.shape[0]))
         # product over the selected parts' masks; all ones when none is selected
         masks = torch.where(sel[..., None], table[None], torch.ones_like(table)[None])

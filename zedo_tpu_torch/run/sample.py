@@ -13,6 +13,8 @@ Port of zedo_tpu/run/sample.py on one device, with the same flags plus
 `--device` (default cuda; `--device cpu` runs on the CPU). `--config` takes
 a preset (h36m, 3dhp, 3dpw, ski, wild, mini, syrip) or the path of any
 config file the JAX CLI takes. Samples are written as [N, j, 3] .npy.
+Both samplers run compiled, as JAX's jit them (`PCSampler.sample_loop_jit`,
+`ODESampler.sample_jit`: CUDA graphs on the card).
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ import torch
 from zedo_tpu_torch.diffusion.guidance import get_match_grad_fn, get_sym_gradient_fn
 from zedo_tpu_torch.diffusion.ode import ODESampler
 from zedo_tpu_torch.diffusion.sampling import PCSampler, make_task_mask
-from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.registry import make_mlp_config
@@ -87,11 +88,7 @@ def main(argv=None) -> dict:
     sde = build_sde(config.training.sde, beta_min=m.beta_min, beta_max=m.beta_max,
                     sigma_min=m.sigma_min, sigma_max=m.sigma_max, n=m.num_scales,
                     t_max=1.0)  # full-range sampling
-
-    def model_fn(x, labels, condition, mask):
-        return score_mlp.apply(params, model_cfg, x, labels, condition, mask)
-
-    score_fn = get_score_fn(sde, model_fn, continuous=config.training.continuous)
+    continuous = config.training.continuous
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     if args.input is not None:
@@ -117,7 +114,8 @@ def main(argv=None) -> dict:
                                  "method=ode")
             sampler = ODESampler(sde=sde, shape=shape, denoise=config.sampling.noise_removal,
                                  eps=1e-3)
-            samples, nfe = sampler.sample(score_fn, gen)
+            samples, nfe = sampler.sample_jit(score_mlp.apply, params, model_cfg, gen,
+                                              continuous=continuous)
             print(f"ODE sampler finished, nfe={nfe}")
             if nfe >= ODE_MAX_NFE:
                 print("WARNING: ODE step budget exhausted: integration may not have reached "
@@ -127,8 +125,7 @@ def main(argv=None) -> dict:
                 sde=sde, predictor=config.sampling.predictor.lower(),
                 corrector=config.sampling.corrector.lower(), snr=config.sampling.snr,
                 n_steps=config.sampling.n_steps_each, probability_flow=False,
-                continuous=config.training.continuous, denoise=config.sampling.noise_removal,
-                eps=1e-3)
+                continuous=continuous, denoise=config.sampling.noise_removal, eps=1e-3)
             mask = condition = x_init = None
             if args.task != "gen":
                 mask = torch.as_tensor(make_task_mask(args.task, shape, jlist=args.jlist,
@@ -147,9 +144,9 @@ def main(argv=None) -> dict:
                 guidance_fn = get_match_grad_fn(args.guide_weight)
             elif args.guide == "sym":
                 guidance_fn = get_sym_gradient_fn(args.guide_weight)
-            samples = sampler.sample_loop(
-                score_fn, gen, shape, condition=condition, mask=mask, x_init=x_init,
-                warm_start_steps=args.warm_start_steps, guidance_fn=guidance_fn,
+            samples = sampler.sample_loop_jit(
+                score_mlp.apply, params, model_cfg, gen, shape, condition=condition, mask=mask,
+                x_init=x_init, warm_start_steps=args.warm_start_steps, guidance_fn=guidance_fn,
                 guidance_condition=guidance_condition)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -11,10 +11,16 @@ On a mesh (`mesh=`, parallel/mesh.py) every rank calls `predict` with the
 same request (SPMD): each pads it to the bucket, solves its block of the
 rows on its device, ranks and packs them there, and the packed blocks are
 gathered with one device-to-host copy a rank.
+
+The ranking and packing is compiled (JAX jits `_rank_and_pack`):
+`_rank_and_pack_jit` is one CUDA graph on the card, keyed by the shapes
+(utils/compiled.py), beside the solve's graphs; `_rank_and_pack` is the
+same function eagerly, its oracle.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -26,6 +32,7 @@ from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.camera import project
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel.mesh import Mesh, mesh_from_spec
+from zedo_tpu_torch.utils import compiled
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import pipeline
@@ -40,6 +47,19 @@ def _rank_and_pack(poses, trans, kp2d, k):
     err = (proj - kp2d[:, None, :, :2]).abs().mean(dim=(2, 3))  # [N, S]
     return torch.cat([poses.reshape(n, -1).float(), trans.reshape(n, -1).float(),
                       err.float()], dim=1)
+
+
+def _rank_and_pack_body(carry, consts, ys, counter, generator, variant):
+    return {"packed": _rank_and_pack(consts["poses"], consts["trans"], consts["kp2d"],
+                                     consts["k"])}
+
+
+def _rank_and_pack_jit(poses, trans, kp2d, k):
+    """`_rank_and_pack` as one compiled call."""
+    out, _ = compiled.step(functools.partial(_rank_and_pack_body), None,
+                           {"poses": poses, "trans": trans, "kp2d": kp2d, "k": k},
+                           compiled=True)
+    return out["packed"]
 
 
 def _resolve_mesh(mesh, device) -> Optional[Mesh]:
@@ -185,7 +205,7 @@ class ZeDOEstimator:
         with torch.no_grad():
             result = pipeline.solve_jit(self.params, self.model_cfg, self.sde, self.sampler,
                                         self.zcfg, clusters, kp, conf, kk, generator=generator)
-            packed = _rank_and_pack(result.poses, result.translations, kp, kk)
+            packed = _rank_and_pack_jit(result.poses, result.translations, kp, kk)
         if self.mesh is None:
             host = packed.cpu()  # the one device-to-host copy
         else:

@@ -100,7 +100,9 @@ def train_prior(dev: torch.device):
     def model_apply(p, x, labels, cond, msk, train=False, generator=None):
         return score_mlp.apply(p, cfg, x, labels, cond, msk, train=train, generator=generator)
 
-    step_fn = losses_lib.get_step_fn(sde, model_apply, optimizer, train=True, reduce_mean=True)
+    # compiled, as the JAX tool jits its step (one CUDA graph a step on the card)
+    step_fn = losses_lib.get_step_fn(sde, model_apply, optimizer, train=True, reduce_mean=True,
+                                     compiled=True)
     gen = torch.Generator(dev).manual_seed(1)
     data = torch.as_tensor(train_poses, device=dev)
     losses = []

@@ -38,7 +38,6 @@ from zedo_tpu_torch.data import evaluation
 from zedo_tpu_torch.diffusion import ema as ema_lib
 from zedo_tpu_torch.diffusion import losses as losses_lib
 from zedo_tpu_torch.diffusion.sampling import PCSampler
-from zedo_tpu_torch.diffusion.score import get_score_fn
 from zedo_tpu_torch.diffusion.sde import build_sde
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.models.nn import tree_to_flat
@@ -145,11 +144,13 @@ def _bound_apply(model_apply_raw, model_cfg, compute_dtype: str = "fp32"):
 def make_train_step(sde, model_apply_raw, model_cfg, optimizer, reduce_mean=False,
                     continuous=True, likelihood_weighting=False, compute_dtype: str = "fp32",
                     grad_mask=None):
-    """The TrainState step for a score_mlp.apply-style model."""
+    """The TrainState step for a score_mlp.apply-style model, compiled (JAX's
+    jax.jit(step_fn)): one CUDA graph a step on the card, replayed on the
+    state's tensors (diffusion/losses.py)."""
     return losses_lib.get_step_fn(
         sde, _bound_apply(model_apply_raw, model_cfg, compute_dtype), optimizer, train=True,
         reduce_mean=reduce_mean, continuous=continuous,
-        likelihood_weighting=likelihood_weighting, grad_mask=grad_mask)
+        likelihood_weighting=likelihood_weighting, grad_mask=grad_mask, compiled=True)
 
 
 class MeshSync:
@@ -163,6 +164,8 @@ class MeshSync:
                  rules: Optional[dict] = None, hidden: Optional[int] = None):
         self.mesh, self.data_axis, self.model_axis = mesh, data_axis, model_axis
         self.rules, self.hidden = rules, hidden  # rules: {leaf name: tp rule} or None
+        # the tensor-parallel forward gathers and sums between its layers
+        self.forward_collectives = rules is not None
 
     def generator(self, gen, batch) -> rng.ShardedGenerator:
         b, m = batch.shape[0], self.mesh
@@ -215,7 +218,14 @@ def make_sharded_train_step(mesh, sde, model_apply_raw, model_cfg, optimizer,
     """The train step on a mesh: each rank passes its rows of the global
     batch (`rows(n)` is this rank's slice of a batch of n rows). tp_rules:
     the flat tensor_parallel rules of a state sharded over `model_axis`
-    (score_mlp.apply only), else None. Returns (step_fn, rows)."""
+    (score_mlp.apply only), else None. Returns (step_fn, rows). The step is
+    compiled as two calls, the loss and gradients, then the clip, Adam and
+    the EMA; the mesh's reductions (and under tensor parallelism the global
+    gradient norm's) run between them, outside the graphs: Gloo's
+    collectives cannot be captured, and NCCL's are kept out with them, one
+    path for both. Under tensor parallelism the forward and backward run
+    collectives between their layers, so the first call runs eagerly and
+    only the clip, Adam and the EMA are compiled."""
     if tp_rules is not None:
         if model_apply_raw is not score_mlp.apply:
             raise ValueError("tensor parallelism takes the plain ScoreMLP (score_mlp.apply) "
@@ -225,7 +235,8 @@ def make_sharded_train_step(mesh, sde, model_apply_raw, model_cfg, optimizer,
     step = losses_lib.get_step_fn(
         sde, _bound_apply(model_apply_raw, model_cfg, compute_dtype), optimizer, train=True,
         reduce_mean=reduce_mean, continuous=continuous,
-        likelihood_weighting=likelihood_weighting, grad_mask=grad_mask, sync=sync)
+        likelihood_weighting=likelihood_weighting, grad_mask=grad_mask, sync=sync,
+        compiled=True)
     return step, lambda n: mesh.row_slice(n, data_axis)
 
 
@@ -246,6 +257,8 @@ def _save(path, epoch, state, model_cfg, mesh=None, rules=None):
     """A checkpoint of the full state, written by the mesh's first rank (the
     tensor-parallel blocks gathered first; every rank takes part)."""
     params, ema, opt_state = state.params, state.ema, state.opt_state.state_dict()
+    # the learning rate as a number, whatever device's Adam wrote it
+    opt_state["param_groups"] = [{**g, "lr": float(g["lr"])} for g in opt_state["param_groups"]]
     if rules is not None:
         names = [n for n, _ in state.leaves()]
         params = tp_lib.gather_tree(params, rules, mesh)
@@ -333,7 +346,7 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
             names = [n for n, _ in state.leaves()]
             opt_state = _map_adam(opt_state, names,
                                   lambda v, n: tp_lib.shard_leaf(v, rules[n], mesh))
-        state.opt_state.load_state_dict(opt_state)
+        optimizer.load_state(state.opt_state, opt_state)
         ema = restored["ema"]
         state.ema = ema_lib.EMAState(decay=ema["decay"], num_updates=ema["num_updates"],
                                      shadow_params=place(ema["shadow_params"]))
@@ -488,15 +501,13 @@ def train_loop(config, dataset, test_dataset=None, *, output_dir: str = "./outpu
             if rules is not None:
                 ema_params = tp_lib.gather_tree(ema_params, rules, mesh)
 
-            def model_fn(x, labels, cond, msk):
-                return model_apply_raw(ema_params, model_cfg, x, labels, cond, msk)
-
-            score_fn = get_score_fn(sde, model_fn, continuous=True)
             gen.manual_seed(step_seed(trainer_cfg.seed, epoch, 1 << 30))
             with torch.no_grad():
-                results = eval_sampler.sample_loop(
-                    score_fn, gen, (min(config.eval.batch_size, n), model_cfg.n_joints,
-                                    model_cfg.joint_dim))
+                # compiled, keyed by the shapes: a new EMA captures nothing anew
+                results = eval_sampler.sample_loop_jit(
+                    model_apply_raw, ema_params, model_cfg, gen,
+                    (min(config.eval.batch_size, n), model_cfg.n_joints, model_cfg.joint_dim),
+                    continuous=True)
             results = results.cpu().numpy() / trainer_cfg.data_scale
             if main:
                 np.save(os.path.join(output_dir, f"results_{epoch}.npy"), results)

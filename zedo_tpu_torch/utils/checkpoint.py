@@ -112,7 +112,7 @@ def save_native(path: str, epoch: int, step: int, params: dict, ema, opt_state: 
     payload = {
         "epoch": int(epoch), "step": int(step),
         "model_state_dict": {"module." + k: v for k, v in _cpu(flat).items()},
-        "ema": {"decay": ema.decay, "num_updates": ema.num_updates,
+        "ema": {"decay": ema.decay, "num_updates": int(ema.num_updates),
                 "shadow_params": [shadow[n] for n in names], "shadow_state_dict": shadow},
         "optimizer_state_dict": opt_state,
     }
