@@ -1,0 +1,6 @@
+"""The median latency of all requests of the window."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.latency_ms(run, 50)
