@@ -445,7 +445,8 @@ def test_sample_loop_cache_takes_new_weights():
         with torch.no_grad():
             outs[name] = sampler.sample_loop_jit(tsm.apply, p, cfg,
                                                  torch.Generator().manual_seed(0), (4, 17, 3))
-    assert compiled.cache_info() == {"hits": 2, "misses": 1, "entries": 1}
+    assert compiled.cache_info() == {"hits": 2, "misses": 1, "entries": 1,
+                                     "captures": 0, "capture_s": 0.0}
     assert torch.equal(outs["a"], outs["a2"]) and not torch.equal(outs["a"], outs["b"])
     score = tscore.get_score_fn(ts, lambda x, l, c, m: tsm.apply(new, cfg, x, l, c, m), True)
     with torch.no_grad():
@@ -460,7 +461,8 @@ def test_train_step_cache_is_one_entry_a_state():
     steps, states, batch, _ = small_train()
     for _ in range(3):
         steps[1](states[1], torch.Generator().manual_seed(0), batch)
-    assert compiled.cache_info() == {"hits": 2, "misses": 1, "entries": 1}
+    assert compiled.cache_info() == {"hits": 2, "misses": 1, "entries": 1,
+                                     "captures": 0, "capture_s": 0.0}
     steps[1](states[0], torch.Generator().manual_seed(0), batch)
     assert compiled.cache_info()["entries"] == 2
 
@@ -480,7 +482,8 @@ def test_a_dropped_state_releases_its_entry():
     gc.collect()
     assert compiled.cache_info()["entries"] == 1
     steps[1](kept, torch.Generator().manual_seed(0), batch)
-    assert compiled.cache_info() == {"hits": 1, "misses": 2, "entries": 1}
+    assert compiled.cache_info() == {"hits": 1, "misses": 2, "entries": 1,
+                                     "captures": 0, "capture_s": 0.0}
 
 
 def test_a_second_eval_epoch_adds_no_entry(tmp_path, monkeypatch):
@@ -521,7 +524,8 @@ def test_ode_cache_is_one_entry():
     with torch.no_grad():
         for seed in (0, 1):
             sampler.sample_jit(tsm.apply, params, cfg, torch.Generator().manual_seed(seed))
-    assert compiled.cache_info() == {"hits": 1, "misses": 1, "entries": 1}
+    assert compiled.cache_info() == {"hits": 1, "misses": 1, "entries": 1,
+                                     "captures": 0, "capture_s": 0.0}
 
 
 # ------------------------------------------- (e) the entry points reach them

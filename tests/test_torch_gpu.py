@@ -454,6 +454,39 @@ def test_replays_count_kernel_launches(cuda_device):
     assert compiled.cache_info()["entries"] == 2  # IPO and OIL, captured once
 
 
+@pytest.mark.gpu
+def test_capture_seconds_count_the_first_solve_only(cuda_device):
+    """`cache_info()`'s capture counters grow with the first solve's
+    captures (inside the span zedo.capture) and not with its replays."""
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.utils import compiled, profiling
+    from zedo_tpu_torch.zeroshot import pipeline
+
+    sde, zcfg, clusters, px, k = _solve_inputs(cuda_device, n=48, s=3, seed=2)
+    cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128)
+    params = tree_map(lambda a: a.to(torch.bfloat16),
+                      tsm.init_params(torch.Generator().manual_seed(2), cfg, device=cuda_device))
+    compiled.clear_cache()
+    before = compiled.cache_info()
+    profiling.clear()
+    with profiling.recording(), torch.no_grad():
+        pipeline.solve_jit(params, cfg, sde, PCSampler(sde=sde, eps=0.01), zcfg, clusters,
+                           px, None, k)
+        first = compiled.cache_info()
+        pipeline.solve_jit(params, cfg, sde, PCSampler(sde=sde, eps=0.01), zcfg, clusters,
+                           px, None, k)
+    second = compiled.cache_info()
+    log = profiling.spans()
+    profiling.clear()
+    assert first["capture_s"] > before["capture_s"] and first["captures"] > before["captures"]
+    assert (second["capture_s"], second["captures"]) == (first["capture_s"], first["captures"])
+    captures = [s for s in log if s.name == "zedo.capture"]
+    assert len(captures) == 2 and {log[s.parent].name for s in captures} == {"zedo.ipo",
+                                                                              "zedo.oil"}
+    spent = sum(s.end_ns - s.start_ns for s in captures) * 1e-9
+    assert 0 < spent <= first["capture_s"] - before["capture_s"]
+
+
 CAPTURE_FAILS = """
 import functools, sys, torch
 from zedo_tpu_torch.utils import compiled

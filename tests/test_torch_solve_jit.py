@@ -295,24 +295,29 @@ def test_cache_is_keyed_by_static_arguments_and_shapes(fixture):
     compiled.clear_cache()
     args = list(_args(fixture))
     first = tpipe.solve_jit(*args)
-    assert compiled.cache_info() == {"hits": 0, "misses": 2, "entries": 2}
+    assert compiled.cache_info() == {"hits": 0, "misses": 2, "entries": 2,
+                                     "captures": 0, "capture_s": 0.0}
     _equal(tpipe.solve_jit(*args), first)
-    assert compiled.cache_info() == {"hits": 2, "misses": 2, "entries": 2}
+    assert compiled.cache_info() == {"hits": 2, "misses": 2, "entries": 2,
+                                     "captures": 0, "capture_s": 0.0}
 
     args[0] = tree_map(lambda a: a * 1.5, args[0])
     got = tpipe.solve_jit(*args)
-    assert compiled.cache_info() == {"hits": 4, "misses": 2, "entries": 2}
+    assert compiled.cache_info() == {"hits": 4, "misses": 2, "entries": 2,
+                                     "captures": 0, "capture_s": 0.0}
     assert not torch.equal(got.poses, first.poses)
     _equal(got, tpipe.solve(*args))
 
     # a changed OIL config: a new OIL entry, the IPO entry reused
     args[4] = dataclasses.replace(args[4], oil=dataclasses.replace(args[4].oil, score_reuse=2))
     tpipe.solve_jit(*args)
-    assert compiled.cache_info() == {"hits": 5, "misses": 3, "entries": 3}
+    assert compiled.cache_info() == {"hits": 5, "misses": 3, "entries": 3,
+                                     "captures": 0, "capture_s": 0.0}
     # a changed shape (one hypothesis fewer): new entries for both scans
     args[5] = args[5][:1]
     tpipe.solve_jit(*args)
-    assert compiled.cache_info() == {"hits": 5, "misses": 5, "entries": 5}
+    assert compiled.cache_info() == {"hits": 5, "misses": 5, "entries": 5,
+                                     "captures": 0, "capture_s": 0.0}
 
 
 def test_compiled_scan_returns_clones_and_keeps_callers_tensors():

@@ -16,12 +16,12 @@ sharded solve) plus its one device-to-host copy, with an IPO/OIL split
 (utils.profiling.Stopwatch, a device synchronize between the two phases)
 printed on the line before the result. Prints one JSON line:
   {"metric": "h36m_s50_eval_wallclock", "value": <s>, "unit": "s",
-   "vs_baseline": <60/s>, "extras": {...}}
-`mfu` in the extras is the kernel-analytic model FLOP/s over the whole
-solve's wall-clock against the H100's 989 TFLOP/s dense bf16 peak. The
-mesh, the compilation cache and the relay watchdog of bench.py are TPU
-matters and have no counterpart here. `--trained` reports the accuracy
-bounds of the committed trained fixture (bench_trained.run_trained_bounds).
+   "extras": {...}}
+The port's rates and shares of the card's peak are perfbench/'s
+(BENCHMARK.json). The mesh, the compilation cache and the relay watchdog
+of bench.py are TPU matters and have no counterpart here. `--trained`
+reports the accuracy bounds of the committed trained fixture
+(bench_trained.run_trained_bounds).
 """
 from __future__ import annotations
 
@@ -37,14 +37,10 @@ from zedo_tpu_torch import bench_trained
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.models import score_mlp
-from zedo_tpu_torch.ops.kernels import score_kernel
 from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.utils.profiling import Stopwatch
 from zedo_tpu_torch.zeroshot import pipeline
-
-# dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet), at 700 W
-H100_BF16_PEAK_FLOPS = 989e12
 
 
 def build_inputs(n=886, s=50, j=17, seed=0):
@@ -79,8 +75,6 @@ def run_trained(n: int, s: int, dev: torch.device) -> dict:
         "metric": f"trained_accuracy_n{n}_s{s}",
         "value": round(out["fp32_mpjpe_mm"], 3),
         "unit": "mm",
-        # trained-prior error as a fraction of the cluster-init error
-        "vs_baseline": round(out["init_mm"] / out["fp32_mpjpe_mm"], 3),
         "extras": {k: (round(v, 4) if isinstance(v, float) else v) for k, v in out.items()}
         | {"device_kind": device_kind(dev),
            "checkpoint": "tests/fixtures/trained (hidden 256, 3000 steps)"},
@@ -143,25 +137,17 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"non-finite poses (checksum {checksum})")
     print(f"phases: {sw.report()}", flush=True)
 
-    # model FLOP/s from the kernel's analytic per-forward count times the
-    # forwards the OIL loop runs; IPO and geometry are left out, so over the
-    # whole solve's wall-clock this is a lower bound on the score phase's
     n_evals = -(-oil_iters // args.reuse)
-    achieved = n_evals * score_kernel.analytic_fwd_flops(n * s, cfg) / elapsed
-    peak = H100_BF16_PEAK_FLOPS if dev.type == "cuda" else None
-    mfu = achieved / peak if (peak and dtype == "bf16") else None
     metric = ("h36m_s50_eval_wallclock" if (n, s) == (886, 50)
               else f"eval_wallclock_n{n}_s{s}")
     if args.reuse > 1:
         metric += f"_reuse{args.reuse}"
     if oil_iters != 1000:
         metric += f"_oil{oil_iters}"
-    target_s = 60.0 * (n * s) / (886 * 50)  # BASELINE.json's target, rate-scaled
     result = {
         "metric": metric,
         "value": round(elapsed, 3),
         "unit": "s",
-        "vs_baseline": round(target_s / elapsed, 3),
         "extras": {
             "poses_per_s": round(n * s / elapsed, 1),
             "compile_plus_first_run_s": round(first, 3),
@@ -174,11 +160,6 @@ def main(argv=None) -> dict:
             "device_kind": device_kind(dev),
             "score_reuse": args.reuse,
             "nfe": n_evals,
-            "model_tflops": round(achieved / 1e12, 4),
-            "bf16_peak_tflops": round(peak / 1e12, 1) if peak else None,
-            "mfu": round(mfu, 4) if mfu is not None else None,
-            "flops_basis": "kernel-analytic (score_kernel.analytic_fwd_flops), "
-                           "full-solve wallclock denominator",
         },
     }
     print(json.dumps(result), flush=True)

@@ -27,6 +27,7 @@ from zedo_tpu_torch.ops.metrics import (
 )
 from zedo_tpu_torch.ops.procrustes import aligned_batched, procrustes
 from zedo_tpu_torch.utils import compiled as compiled_lib
+from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.table import Table
 
 
@@ -146,58 +147,60 @@ def multi_hypothesis_eval(
       hypotheses; invalid hypotheses never win the min;
     * PCK/AUC on the min-error hypotheses; `hypo_std` the per-axis spread
       (ddof 0) of the root-relative hypotheses, root excluded.
-    preds is a tensor (evaluated on its device) or an array (on the CPU)."""
-    preds = torch.as_tensor(preds, dtype=torch.float32)
-    gt = torch.as_tensor(gt, dtype=torch.float32, device=preds.device)
-    errors = _hypothesis_errors_jit(
-        preds, gt, protocol2, None if joint_subset is None else tuple(joint_subset),
-        subset_before_align)
-    if valid_ind is not None:
-        n, s = errors.shape
-        mask = _valid_mask(valid_ind, n, s)
-        if not mask.any(axis=1).all():
-            raise ValueError("valid_ind leaves some sample with no valid hypothesis")
-        errors = torch.where(torch.as_tensor(mask, device=errors.device), errors,
-                             torch.full_like(errors, float("inf")))
-    min_err, min_arg = min_over_hypotheses(errors)
-    per_sample_min = min_err.cpu().numpy()
-    min_idx = min_arg.cpu().numpy()
+    preds is a tensor (evaluated on its device) or an array (on the CPU).
+    The span `zedo.evaluate`."""
+    with profiling.annotate("zedo.evaluate"):
+        preds = torch.as_tensor(preds, dtype=torch.float32)
+        gt = torch.as_tensor(gt, dtype=torch.float32, device=preds.device)
+        errors = _hypothesis_errors_jit(
+            preds, gt, protocol2, None if joint_subset is None else tuple(joint_subset),
+            subset_before_align)
+        if valid_ind is not None:
+            n, s = errors.shape
+            mask = _valid_mask(valid_ind, n, s)
+            if not mask.any(axis=1).all():
+                raise ValueError("valid_ind leaves some sample with no valid hypothesis")
+            errors = torch.where(torch.as_tensor(mask, device=errors.device), errors,
+                                 torch.full_like(errors, float("inf")))
+        min_err, min_arg = min_over_hypotheses(errors)
+        per_sample_min = min_err.cpu().numpy()
+        min_idx = min_arg.cpu().numpy()
 
-    per_action = None
-    if actions is not None:
-        actions = np.asarray(actions)
-        order = action_order if action_order is not None else sorted(set(actions.tolist()))
-        per_action = {}
-        means = []
-        for a in order:
-            sel = per_sample_min[actions == a]
-            if len(sel):
-                per_action[a] = float(np.mean(sel))
-                means.append(per_action[a])
-        if not means:
-            raise ValueError(
-                f"no samples fall into any action of action_order="
-                f"{list(order)} (got actions {sorted(set(actions.tolist()))})")
-        error = float(np.mean(means))
-    else:
-        error = float(np.mean(per_sample_min))
+        per_action = None
+        if actions is not None:
+            actions = np.asarray(actions)
+            order = action_order if action_order is not None else sorted(set(actions.tolist()))
+            per_action = {}
+            means = []
+            for a in order:
+                sel = per_sample_min[actions == a]
+                if len(sel):
+                    per_action[a] = float(np.mean(sel))
+                    means.append(per_action[a])
+            if not means:
+                raise ValueError(
+                    f"no samples fall into any action of action_order="
+                    f"{list(order)} (got actions {sorted(set(actions.tolist()))})")
+            error = float(np.mean(means))
+        else:
+            error = float(np.mean(per_sample_min))
 
-    pck = auc = None
-    if with_pck_auc:
-        min_preds = preds.gather(1, min_arg[:, None, None, None].expand(
-            -1, 1, *preds.shape[2:]))[:, 0]
-        err_mm = joint_errors_mm(gt, min_preds)  # one matrix feeds both metrics
-        pck = pck_from_errors(err_mm)
-        auc = auc_from_errors(err_mm)
+        pck = auc = None
+        if with_pck_auc:
+            min_preds = preds.gather(1, min_arg[:, None, None, None].expand(
+                -1, 1, *preds.shape[2:]))[:, 0]
+            err_mm = joint_errors_mm(gt, min_preds)  # one matrix feeds both metrics
+            pck = pck_from_errors(err_mm)
+            auc = auc_from_errors(err_mm)
 
-    hypo_std = None
-    if with_hypo_std:
-        rel = (preds - preds[:, :, 0:1])[:, :, 1:]
-        hypo_std = tuple(float(rel[..., ax].std(dim=1, correction=0).mean())
-                         for ax in range(3))
+        hypo_std = None
+        if with_hypo_std:
+            rel = (preds - preds[:, :, 0:1])[:, :, 1:]
+            hypo_std = tuple(float(rel[..., ax].std(dim=1, correction=0).mean())
+                             for ax in range(3))
 
-    return EvalReport(error=error, per_sample_min=per_sample_min, min_hypothesis=min_idx,
-                      per_action=per_action, pck=pck, auc=auc, hypo_std=hypo_std)
+        return EvalReport(error=error, per_sample_min=per_sample_min, min_hypothesis=min_idx,
+                          per_action=per_action, pck=pck, auc=auc, hypo_std=hypo_std)
 
 
 def gt_from_items(items) -> np.ndarray:

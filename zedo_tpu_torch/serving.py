@@ -32,7 +32,7 @@ from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.camera import project
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.parallel.mesh import Mesh, mesh_from_spec
-from zedo_tpu_torch.utils import compiled
+from zedo_tpu_torch.utils import compiled, profiling
 from zedo_tpu_torch.utils.checkpoint import convert_cluster_file, load_any_checkpoint
 from zedo_tpu_torch.utils.config import resolve_device
 from zedo_tpu_torch.zeroshot import pipeline
@@ -184,38 +184,47 @@ class ZeDOEstimator:
                 confidence: Optional[np.ndarray] = None) -> dict:
         """keypoints_2d [N, j, 2], k [N, 3, 3], confidence [N, j] or None
         -> dict(poses [N, S, j, 3], translations [N, S, 1, 3], best [N]
-        argmin-reprojection hypothesis index, reprojection_error [N, S])."""
-        n = len(keypoints_2d)
-        padded, mask = pad_batch(
-            {"kp": np.asarray(keypoints_2d, np.float32),
-             "k": np.asarray(k, np.float32),
-             "conf": None if confidence is None else np.asarray(confidence, np.float32)},
-            self.batch_bucket)
+        argmin-reprojection hypothesis index, reprojection_error [N, S]).
+        The span `zedo.predict`, and inside it one for each step: pad, h2d,
+        the solve, rank_pack, d2h_wait (the host waiting for the card) and
+        unpad."""
+        with profiling.annotate("zedo.predict"):
+            n = len(keypoints_2d)
+            with profiling.annotate("zedo.predict.pad"):
+                padded, mask = pad_batch(
+                    {"kp": np.asarray(keypoints_2d, np.float32),
+                     "k": np.asarray(k, np.float32),
+                     "conf": None if confidence is None else np.asarray(confidence, np.float32)},
+                    self.batch_bucket)
 
-        clusters = torch.from_numpy(self.clusters).to(self.device)
-        buffers = (padded["kp"], padded["k"], padded["conf"])
-        if self.mesh is None:
-            kp, kk, conf = (None if a is None else torch.from_numpy(a).to(self.device)
-                            for a in buffers)
-        else:
-            # this rank's block of the padded rows, solved, ranked and packed here
-            kp, kk, conf = pipeline.shard_rows(self.mesh, "data", len(mask), *buffers)
-            pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg)
-        generator = torch.Generator(self.device).manual_seed(self.seed)
-        with torch.no_grad():
-            result = pipeline.solve_jit(self.params, self.model_cfg, self.sde, self.sampler,
-                                        self.zcfg, clusters, kp, conf, kk, generator=generator)
-            packed = _rank_and_pack_jit(result.poses, result.translations, kp, kk)
-        if self.mesh is None:
-            host = packed.cpu()  # the one device-to-host copy
-        else:
-            host = collectives.all_gather_to_host(packed, self.mesh, "data")
-        host = unpad(host.numpy(), mask)
-        s, j = len(self.clusters), self.model_cfg.n_joints
-        poses = host[:, :s * j * 3].reshape(n, s, j, 3)
-        trans = host[:, s * j * 3:s * j * 3 + s * 3].reshape(n, s, 1, 3)
-        err = host[:, s * j * 3 + s * 3:]
-        return {"poses": poses, "translations": trans, "best": err.argmin(axis=1),
-                "reprojection_error": err}
+            with profiling.annotate("zedo.predict.h2d"):
+                clusters = torch.from_numpy(self.clusters).to(self.device)
+                buffers = (padded["kp"], padded["k"], padded["conf"])
+                if self.mesh is None:
+                    kp, kk, conf = (None if a is None else torch.from_numpy(a).to(self.device)
+                                    for a in buffers)
+                else:
+                    # this rank's block of the padded rows, solved, ranked and packed here
+                    kp, kk, conf = pipeline.shard_rows(self.mesh, "data", len(mask), *buffers)
+                    pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg)
+            generator = torch.Generator(self.device).manual_seed(self.seed)
+            with torch.no_grad():
+                result = pipeline.solve_jit(self.params, self.model_cfg, self.sde, self.sampler,
+                                            self.zcfg, clusters, kp, conf, kk, generator=generator)
+                with profiling.annotate("zedo.predict.rank_pack"):
+                    packed = _rank_and_pack_jit(result.poses, result.translations, kp, kk)
+            with profiling.annotate("zedo.predict.d2h_wait"):
+                if self.mesh is None:
+                    host = packed.cpu()  # the one device-to-host copy
+                else:
+                    host = collectives.all_gather_to_host(packed, self.mesh, "data")
+            with profiling.annotate("zedo.predict.unpad"):
+                host = unpad(host.numpy(), mask)
+                s, j = len(self.clusters), self.model_cfg.n_joints
+                poses = host[:, :s * j * 3].reshape(n, s, j, 3)
+                trans = host[:, s * j * 3:s * j * 3 + s * 3].reshape(n, s, 1, 3)
+                err = host[:, s * j * 3 + s * 3:]
+            return {"poses": poses, "translations": trans, "best": err.argmin(axis=1),
+                    "reprojection_error": err}
 
 

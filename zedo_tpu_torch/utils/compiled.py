@@ -40,6 +40,11 @@ generator stands where the eager loop leaves it.
 Kernel wrappers count their launches in dicts registered here
 (`register_counters`). The counters' increase during a capture is recorded
 and added again on each replay; neither the warm-up nor the capture counts.
+`cache_info()` also counts the CUDA graphs captured and the seconds spent
+in warm-ups and captures (the span `zedo.capture`, on the host clock up to
+the last capture's end; each capture begins with a device synchronize, so
+the warm-up's device work is inside): a process's totals, which
+`clear_cache()` keeps. Nothing is timed or counted a replay.
 
 `step(...)` is one compiled call of a function that is not a loop (JAX's
 `jax.jit` of a plain function): a scan of length 1. Given no carry, the
@@ -70,10 +75,13 @@ from __future__ import annotations
 
 import collections
 import functools
+import time
 import weakref
 from typing import Optional
 
 import torch
+
+from zedo_tpu_torch.utils import profiling
 
 # steps each variant runs on scratch copies before its capture
 WARMUP_STEPS = 3
@@ -82,7 +90,7 @@ MAX_ENTRIES = 32
 
 _COUNTERS: list = []
 _CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_STATS = {"hits": 0, "misses": 0}
+_STATS = {"hits": 0, "misses": 0, "captures": 0, "capture_s": 0.0}
 _READS = {"host_reads": 0}
 _TENSOR = "tensor"
 
@@ -94,7 +102,9 @@ def register_counters(*counters: dict) -> None:
 
 
 def cache_info() -> dict:
-    """Hits, misses and entries of the cache of compiled scans."""
+    """Hits, misses and entries of the cache of compiled scans since it was
+    last cleared, and the graphs captured and seconds of warm-up and capture
+    since the process began."""
     return {**_STATS, "entries": len(_CACHE)}
 
 
@@ -280,26 +290,31 @@ class _Entry:
     def _capture(self, variants) -> None:
         dev = self.device
         saved = _snapshot()
+        start = time.perf_counter()
         try:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._warm_up(variants)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            _restore(saved)
-            pool = None
-            for variant in variants:
-                graph = torch.cuda.CUDAGraph()
-                if self.generator is not None:
-                    graph.register_generator_state(self.generator)
-                with torch.cuda.graph(graph, pool=pool):
-                    self._step(variant)
-                self.launches[variant] = _increase(saved)
+            with profiling.annotate("zedo.capture"):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self._warm_up(variants)
+                torch.cuda.current_stream(dev).wait_stream(side)
                 _restore(saved)
-                pool = graph.pool()
-                self.graphs[variant] = graph
+                pool = None
+                for variant in variants:
+                    graph = torch.cuda.CUDAGraph()
+                    if self.generator is not None:
+                        graph.register_generator_state(self.generator)
+                    # begins with a device synchronize
+                    with torch.cuda.graph(graph, pool=pool):
+                        self._step(variant)
+                    self.launches[variant] = _increase(saved)
+                    _restore(saved)
+                    pool = graph.pool()
+                    self.graphs[variant] = graph
+                    _STATS["captures"] += 1
         finally:
             _restore(saved)
+            _STATS["capture_s"] += time.perf_counter() - start
 
     def _load(self, carry, consts, ys, generator) -> None:
         _copy_into(self.consts, consts)

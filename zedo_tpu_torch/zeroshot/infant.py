@@ -30,6 +30,7 @@ from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SDE
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.ops.linalg import inv_intrinsics
+from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.zeroshot.ipo import init_translation, run_ipo
 from zedo_tpu_torch.zeroshot.oil import OILResult, run_oil
 from zedo_tpu_torch.zeroshot import pipeline
@@ -102,26 +103,28 @@ def _with_condition(model_apply, condition: torch.Tensor):
 def _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
                          cluster_poses, cond2d, k, pelvis_mode, refine_t_from, generator,
                          reproj_weight, condition, stopwatch, compiled=False) -> OILResult:
-    cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype, device=cond2d.device)
-    s, n = cluster_poses.shape[0], cond2d.shape[0]
-    pose0 = cluster_poses[:, None].expand(s, n, *cluster_poses.shape[1:])
-    pose0 = pose0.reshape(s * n, *cluster_poses.shape[1:])
-    cond2d, k = fold(cond2d, s), fold(k, s)
+    """The span `zedo.solve`, with `zedo.ipo` and `zedo.oil` inside."""
+    with profiling.annotate("zedo.solve"):
+        cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype, device=cond2d.device)
+        s, n = cluster_poses.shape[0], cond2d.shape[0]
+        pose0 = cluster_poses[:, None].expand(s, n, *cluster_poses.shape[1:])
+        pose0 = pose0.reshape(s * n, *cluster_poses.shape[1:])
+        cond2d, k = fold(cond2d, s), fold(k, s)
 
-    with _phase(stopwatch, "ipo", cond2d.device):
-        t0 = init_translation_infant(cond2d, k, cfg.ipo.t_norm, pelvis_mode)
-        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, t=t0, n_groups=s, compiled=compiled)
-        x0 = _rotate(ipo.rot_mat, ray_init_pose(cond2d, k, ipo.translation, pelvis_mode))
-    # the reference re-solves T from step 950 of its fixed 1000-step
-    # schedule: the same fraction of the configured iterations
-    fixed = (refine_t_from * cfg.oil.iterations) // 1000
-    oil_cfg = dataclasses.replace(cfg.oil, fixed_t_steps=fixed)
-    with _phase(stopwatch, "oil", cond2d.device):
-        return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation, cond2d, k, None,
-                       oil_cfg, model_apply=model_apply, generator=generator,
-                       reproj_weight=fold(reproj_weight, s), n_groups=s,
-                       # each folded row conditioned on its own sample's keypoints
-                       condition=fold(condition, s), compiled=compiled)
+        with _phase(stopwatch, "ipo", cond2d.device):
+            t0 = init_translation_infant(cond2d, k, cfg.ipo.t_norm, pelvis_mode)
+            ipo = run_ipo(pose0, cond2d, k, cfg.ipo, t=t0, n_groups=s, compiled=compiled)
+            x0 = _rotate(ipo.rot_mat, ray_init_pose(cond2d, k, ipo.translation, pelvis_mode))
+        # the reference re-solves T from step 950 of its fixed 1000-step
+        # schedule: the same fraction of the configured iterations
+        fixed = (refine_t_from * cfg.oil.iterations) // 1000
+        oil_cfg = dataclasses.replace(cfg.oil, fixed_t_steps=fixed)
+        with _phase(stopwatch, "oil", cond2d.device):
+            return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation, cond2d, k, None,
+                           oil_cfg, model_apply=model_apply, generator=generator,
+                           reproj_weight=fold(reproj_weight, s), n_groups=s,
+                           # each folded row conditioned on its own sample's keypoints
+                           condition=fold(condition, s), compiled=compiled)
 
 
 def solve_one_hypothesis_infant(params: dict, model_apply, model_cfg: score_mlp.ScoreMLPConfig,

@@ -30,6 +30,7 @@ from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SDE
 from zedo_tpu_torch.models import score_mlp
 from zedo_tpu_torch.parallel import collectives
+from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.zeroshot.ipo import IPOConfig, run_ipo
 from zedo_tpu_torch.zeroshot.oil import OILConfig, OILResult, run_oil
 
@@ -80,14 +81,16 @@ class SolveResult(NamedTuple):
 
 @contextlib.contextmanager
 def _phase(stopwatch, name: str, device: torch.device):
-    """A stopwatch phase that ends when the device has finished its work."""
-    if stopwatch is None:
-        yield
-        return
-    with stopwatch.phase(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    """The span `zedo.<name>`; with a stopwatch, also its phase `name`, which
+    ends when the device has finished its work."""
+    with profiling.annotate("zedo." + name):
+        if stopwatch is None:
+            yield
+            return
+        with stopwatch.phase(name):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
 
 def fold(a: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
@@ -100,23 +103,25 @@ def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
                   cluster_poses, cond2d, conf, k, model_apply=None,
                   stopwatch=None, generator=None, reproj_weight=None,
                   compiled: bool = False) -> OILResult:
-    """All hypotheses in one batch of S*N rows, hypothesis-major."""
-    cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype,
-                                    device=cond2d.device)
-    s, n = cluster_poses.shape[0], cond2d.shape[0]
-    # root-center each cluster pose and broadcast it over the batch
-    pose0 = cluster_poses - cluster_poses[:, 0:1, :]
-    pose0 = pose0[:, None].expand(s, n, *pose0.shape[1:]).reshape(s * n, *pose0.shape[1:])
-    cond2d, k, conf = fold(cond2d, s), fold(k, s), fold(conf, s)
+    """All hypotheses in one batch of S*N rows, hypothesis-major: the span
+    `zedo.solve`, with `zedo.ipo` and `zedo.oil` inside."""
+    with profiling.annotate("zedo.solve"):
+        cluster_poses = torch.as_tensor(cluster_poses, dtype=cond2d.dtype,
+                                        device=cond2d.device)
+        s, n = cluster_poses.shape[0], cond2d.shape[0]
+        # root-center each cluster pose and broadcast it over the batch
+        pose0 = cluster_poses - cluster_poses[:, 0:1, :]
+        pose0 = pose0[:, None].expand(s, n, *pose0.shape[1:]).reshape(s * n, *pose0.shape[1:])
+        cond2d, k, conf = fold(cond2d, s), fold(k, s), fold(conf, s)
 
-    with _phase(stopwatch, "ipo", cond2d.device):
-        ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s, compiled=compiled)
-        x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
-    with _phase(stopwatch, "oil", cond2d.device):
-        return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
-                       cond2d, k, conf, cfg.oil, model_apply=model_apply,
-                       generator=generator, reproj_weight=fold(reproj_weight, s), n_groups=s,
-                       compiled=compiled)
+        with _phase(stopwatch, "ipo", cond2d.device):
+            ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s, compiled=compiled)
+            x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
+        with _phase(stopwatch, "oil", cond2d.device):
+            return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
+                           cond2d, k, conf, cfg.oil, model_apply=model_apply,
+                           generator=generator, reproj_weight=fold(reproj_weight, s),
+                           n_groups=s, compiled=compiled)
 
 
 def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
