@@ -5,12 +5,13 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the three kernel libraries from zedo_tpu_torch/csrc (kernel #1,
-     kernel #2, kernel #1's probe variants), one nvcc each, started
-     together; registers and spills of their kernels, kernel #1's
-     resident blocks per SM, the HGMMA (wgmma) and UTMALDG (TMA load) opcodes
-     in the SASS of both, and the instructions of each kernel (kernel #2's
-     tile loop has to fit the instruction cache);
+  2. build: the four kernel libraries from zedo_tpu_torch/csrc (kernel #1,
+     kernel #2, kernel #3, kernel #1's probe variants), one nvcc each,
+     started together; registers and spills of their kernels, kernel #1's
+     and kernel #3's resident blocks per SM, the HGMMA (wgmma) and UTMALDG
+     (TMA load) opcodes in the SASS of kernels #1, #2 and #3, and the
+     instructions of each kernel (kernel #2's tile loop has to fit the
+     instruction cache);
   3. kernel #1 (fused_score_forward): its wgmma product alone against
      torch.matmul; then against its plain version at the published width
      (hidden 1024, embed 512, bf16 weights) in both GroupNorm statistics
@@ -22,6 +23,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      12 and 24) in both modes; timed, with plain-version and bf16 torch.matmul-chain times, the
      wrapper's host time per forward (at 44,300 and at 129 rows), the
      roofline bound and the device-traffic floor of one launch per layer;
+ 3a. kernel #3 (fused_control_forward, the ControlNet adapter): against its
+     plain version on the same card inputs at the published width (hidden
+     1024, embed 512, bf16 weights, the copy branch moved off the trunk)
+     and SyRIP's 36 columns, in both GroupNorm statistics modes, on 10,000
+     (500 x 20), 129 and 1 rows, one launch a forward; timed at 10,000 rows
+     in both modes, with its plain version's and control_mlp.apply's in
+     bf16 (the library) times and its roofline bound on the products it
+     executes;
  3b. kernel #1's eight epilogue variants (phase_probe, score_kernel_probe:
      tools/bench_kernel.py --probe's full, no_silu, no_gn, dense_only,
      tanh_silu, bf16_silu, gn_vpu, gn_bcast_vpu), built from the repo's
@@ -77,8 +86,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      schedule: --config mini (2,000 validation frames of sequences 11 and
      12) and --config syrip (the 500 test images) at --hypo 20, kernel #1
      on every OIL forward (40,000 rows at 51 columns, 10,000 at 36);
-     --control and --cond on the MINI-RGBD frames at --hypo 1 (the generic
-     OIL path, no kernel), each finite with its reprojection trace; the
+     --control and --cond on the MINI-RGBD frames at --hypo 1 (--control on
+     kernel #3, 1000 forwards; --cond on the generic OIL path, no kernel),
+     each finite with its reprojection trace; the
      trained fixture's poses as MINI-RGBD frames in fp32 and bf16 against
      the JAX CLI's MPJPE;
   8. accuracy on the committed trained fixture (hidden 256): fp32, bf16
@@ -167,6 +177,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches by rows; solve_one_hypothesis on the generic OIL path
      (Langevin corrector) with a generator (one seed twice bit-equal, two
      seeds apart) and a uniform reproj_weight against the unweighted trace.
+
+Kernel #3's launches are counted in every phase that runs the ControlNet
+adapter (5b, 7) and the script fails unless it ran on those paths.
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -432,7 +445,7 @@ def sass_counts(build, path):
     return counts, [e for e in examples if e], build.count_sass_instructions(dump)
 
 
-def phase_build(torch, build, sk, split):
+def phase_build(torch, build, sk, split, ck):
     """Build the libraries; their resources, occupancy and the SASS of
     kernels #1 and #2 (the probe library's: phase_probe)."""
     libs = build.build()
@@ -441,7 +454,7 @@ def phase_build(torch, build, sk, split):
         res = build.resources(lib.ptxas)
         if not res:
             log("ptxas: (library was already built)")
-        for label in ("wgmma_layer", "dense_layer", "score_mlp_split"):
+        for label in ("wgmma_layer", "dense_layer", "score_mlp_split", "control_layer"):
             regs = [v for k, v in res.items() if label in k]
             if regs:
                 log(f"  {name} {label}: {len(regs)} kernels, registers "
@@ -451,18 +464,22 @@ def phase_build(torch, build, sk, split):
     log(f"wgmma_layer: {blocks} resident blocks per SM")
     if blocks < 1:
         fail("the wgmma kernel does not fit an SM")
+    blocks3 = ck.load_library().zedo_control_blocks_per_sm()
+    log(f"control_layer: {blocks3} resident blocks per SM")
+    if blocks3 < 1:
+        fail("the control kernel does not fit an SM")
     lib2 = split.load_library()
     log(f"score_mlp_split at hidden 1024: {lib2.zedo_score_mlp_split_tile_rows(1024)} rows a "
         f"block, {lib2.zedo_score_mlp_split_stages(1024)} ring stages, "
         f"{lib2.zedo_score_mlp_split_smem_bytes(1024)} bytes of shared memory")
-    for name in ("score_mlp", "score_mlp_split"):
+    for name in ("score_mlp", "score_mlp_split", "score_mlp_control"):
         counts, examples, instructions = sass_counts(build, libs[name].path)
         log(f"SASS of libzedo_{name}.so: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
             f"UTMALDG (TMA load), {counts['HMMA']} HMMA (mma.sync of the wmma kernel, HGMMA "
             f"included)")
         for e in examples:
             log(f"  e.g. {e}")
-        for label in ("wgmma_layer", "dense_layer", "score_mlp_split"):
+        for label in ("wgmma_layer", "dense_layer", "score_mlp_split", "control_layer"):
             sizes = [n for k, n in instructions.items() if label in k]
             if sizes:
                 log(f"  {label}: {len(sizes)} kernels of {min(sizes)}-{max(sizes)} instructions")
@@ -594,6 +611,85 @@ def phase_kernel(torch, sk, tsm, library_forward, dev):
         "rows_40000": {"rows": rows40, "ms": ms40, "bound_ms": bound40},
     }
     return entry, weights, x
+
+
+def control_weights(torch, ck, control_mlp, dev, n_joints=12):
+    """(cfg, bf16 params, {gn mode: (packed, step vectors)}) of a seeded
+    ControlNet adapter at the published width, every leaf of its copy
+    branch scaled elementwise by U(0.5, 1.5) off the trunk it starts as, so
+    that a fault in the control stream cannot hide behind the trunk."""
+    from zedo_tpu_torch.models import nn
+
+    cfg = control_mlp.ScoreMLPConfig(n_joints=n_joints)
+    gen = torch.Generator().manual_seed(3)
+    params = control_mlp.init_params(gen, cfg, device="cpu")
+    for name in [k for k in params if k.endswith("_copy")]:
+        params[name] = {k: v * (0.5 + torch.rand(v.shape, generator=gen))
+                        for k, v in params[name].items()}
+    params = to_bf16(torch, nn.tree_map(lambda a: a.to(dev), params))
+    temb = control_mlp.time_embedding(params, cfg, torch.full((1,), 47.3, device=dev))[0]
+    vecs = ck.step_vectors(params, cfg, temb).contiguous()
+    return cfg, params, {gn: (ck.pack_weights(params, cfg, gn_dtype=gn_dtype), vecs)
+                         for gn, gn_dtype in (("bf16", None), ("f32", torch.float32))}
+
+
+def control_bound(x, packed, vecs, rows):
+    """(bound ms, bound_by, operations) of one kernel #3 forward: the
+    products it executes (3*C*H + 6*H*H multiply-adds a row: layer 0 for
+    both streams, each block's [h | c] and second layers, the post layer) at
+    the bf16 peak against x, its weights and the output at the HBM rate."""
+    io = x.shape[1]
+    h = packed.w_pre.shape[1] // 2
+    flops = 2 * rows * (3 * io * h + 6 * h * h)
+    n_bytes = (x.numel() * 4 + rows * io * 4
+               + sum(t.numel() * t.element_size() for t in
+                     (packed.w_pre, *packed.w_d1, *packed.w_d2, packed.w_post, vecs,
+                      packed.gn_scale, packed.gn_bias, packed.bias_post)))
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def phase_control_kernel(torch, ck, dev):
+    """Kernel #3 against its plain version on the same card inputs, timed;
+    returns its JSON entry (without the main path's launches)."""
+    from zedo_tpu_torch.models import control_mlp
+
+    cfg, params, weights = control_weights(torch, ck, control_mlp, dev)
+    rows = SYRIP_IMAGES * INFANT_HYPO
+    gen = torch.Generator().manual_seed(4)
+    xs = {r: torch.randn(r, 36, generator=gen).to(dev) for r in (rows, 129, 1)}
+    errs, ms = [], {}
+    for gn, (packed, vecs) in weights.items():
+        for r, x in xs.items():
+            want = ck.fused_control_forward_reference(x, packed, vecs)
+            ck.reset_launch_counts()
+            errs.append(check(torch, f"kernel #3 gn={gn} vs plain",
+                              ck.fused_control_forward(x, packed, vecs), want, r))
+            if ck.launch_counts["fused_control_forward"] != 1:
+                fail(f"kernel #3: {ck.launch_counts}, want one forward")
+        ms[gn] = cuda_ms(torch, lambda: ck.fused_control_forward(xs[rows], packed, vecs), 20, 3)
+    packed, vecs = weights["bf16"]
+    x = xs[rows]
+    plain_ms = cuda_ms(torch, lambda: ck.fused_control_forward_reference(x, packed, vecs), 3, 1)
+    xb = x.to(torch.bfloat16)
+    labels = torch.full((rows,), 47.3, device=dev, dtype=torch.bfloat16)
+    lib_ms = cuda_ms(torch, lambda: control_mlp.apply(params, cfg, xb, labels), 10, 2)
+    bound_ms, bound_by, flops = control_bound(x, packed, vecs, rows)
+    published = 2 * rows * (3 * 36 * 1024 + 9 * 1024 * 1024)
+    for gn in ms:
+        log(f"fused_control_forward gn={gn} {rows}x36, hidden 1024: kernel {ms[gn]:.4f} ms "
+            f"({flops / ms[gn] / 1e9:.1f} TFLOP/s executed, {published / ms[gn] / 1e9:.1f} on "
+            f"the published dataflow; {bound_ms / ms[gn]:.3f} of the {bound_by} bound "
+            f"{bound_ms:.4f} ms)")
+    log(f"kernel #3: plain version {plain_ms:.3f} ms, control_mlp.apply in bf16 "
+        f"{lib_ms:.4f} ms")
+    ck.reset_launch_counts()
+    return {"name": "fused_control_forward", "route": "cuda",
+            "source": "zedo_tpu_torch/csrc/score_mlp_control.cu", "replaces": None,
+            "launches": None, "max_abs_err": max(errs), "ms": ms["bf16"], "ms_gn_f32": ms["f32"],
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "rows": rows, "columns": 36, "hidden": 1024,
+            "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"]}
 
 
 def operand_stream_bytes(sk, rows, hidden, io):
@@ -1065,13 +1161,15 @@ def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, d
     requests in turns, bit-equal, p50 of each, the compiled requests and the
     low-latency eager one profiled; (d) the infant solve on MINI-RGBD-like
     frames, 2,000 x 20 on the plain prior (kernel #1) and 2,000 x 1 on each
-    adapter (the generic path, its draws from the caller's generator, which
-    stands after the compiled solve where the eager one leaves it); (e)
+    adapter (the ControlNet adapter on kernel #3, the conditional model on
+    the generic path, its draws from the caller's generator, which stands
+    after the compiled solve where the eager one leaves it); (e)
     solve_sharded at world size 1 over NCCL against (a)'s eager poses.
-    Kernel #1's launches are counted from the replays: 1000 a solve on the
-    kernel path, 0 on the generic path."""
+    Kernel #1's and kernel #3's launches are counted from the replays: 1000
+    a solve on each kernel's path, 0 elsewhere."""
     from zedo_tpu_torch.data.base import normalize_data
     from zedo_tpu_torch.models import control_mlp, score_mlp_cond
+    from zedo_tpu_torch.ops.kernels import control_kernel as ck
     from zedo_tpu_torch.utils import compiled
     from zedo_tpu_torch.utils.profiling import Stopwatch
     from zedo_tpu_torch.zeroshot import infant, pipeline
@@ -1086,16 +1184,20 @@ def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, d
     inputs = [torch.from_numpy(a).to(dev) for a in (clusters, px, conf, k)]
     compiled.clear_cache()
 
-    def solve(fn, forwards, call, *args, **kw):
+    def solve(fn, forwards, call, *args, control=0, **kw):
         """(result, seconds, IPO s, OIL s) of one solve; its kernel #1
-        forwards checked."""
+        forwards and its kernel #3 forwards (`control`) checked."""
         sw = Stopwatch()
         sk.reset_launch_counts()
+        ck.reset_launch_counts()
         with torch.no_grad():
             out, secs = timed(torch, lambda: call(fn, *args, stopwatch=sw, **kw))
         if sk.launch_counts["fused_score_forward"] != forwards:
             fail(f"compiled phase: {fn.__name__} launched kernel #1 "
                  f"{sk.launch_counts['fused_score_forward']} times, want {forwards}")
+        if ck.launch_counts["fused_control_forward"] != control:
+            fail(f"compiled phase: {fn.__name__} launched kernel #3 "
+                 f"{ck.launch_counts['fused_control_forward']} times, want {control}")
         return out, {"s": secs, "ipo_s": sw.totals["ipo"], "oil_s": sw.totals["oil"]}
 
     def adult(fn, **kw):
@@ -1225,9 +1327,9 @@ def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, d
     iclusters = torch.from_numpy(cam - cam[:, :1]).to(dev)
     condition = torch.from_numpy(normalize_data(ipx.cpu().numpy())).to(dev)
     result["infant"] = {}
-    for name, module, hypo, cond, forwards in (("plain", tsm, INFANT_HYPO, None, 1000),
-                                               ("control", control_mlp, 1, None, 0),
-                                               ("cond", score_mlp_cond, 1, condition, 0)):
+    for name, module, hypo, cond, forwards, forwards3 in (
+            ("plain", tsm, INFANT_HYPO, None, 1000, 0), ("control", control_mlp, 1, None, 0, 1000),
+            ("cond", score_mlp_cond, 1, condition, 0, 0)):
         # the adapters' replays (~450,000 kernels) are profiled for one
         # adapter: reading the trace takes half a minute
         iparams = to_bf16(torch, module.init_params(torch.Generator().manual_seed(0), mcfg,
@@ -1242,7 +1344,7 @@ def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, d
         for mode, fn in (("eager", infant.solve_infant), ("first", infant.solve_infant_jit),
                          ("replay", infant.solve_infant_jit)):
             gen = torch.Generator(dev).manual_seed(0)
-            out, times[mode] = solve(fn, forwards, infant_solve, gen)
+            out, times[mode] = solve(fn, forwards, infant_solve, gen, control=forwards3)
             outs.append(out)
             states.append(gen.get_state())
         same = all(same_solve(torch, o, outs[0]) for o in outs[1:])
@@ -1252,9 +1354,10 @@ def phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, d
                  f"call where eager leaves it {same_gen}")
         log(f"compiled infant solve, {name}, {MINI_FRAMES} x {hypo} on {card}: eager "
             f"{fmt(times['eager'])}, first call {fmt(times['first'])}, replay "
-            f"{fmt(times['replay'])}; kernel #1 {forwards} forwards a solve; bit-equal, the "
-            f"generator where eager leaves it")
-        result["infant"][name] = {**times, "rows": MINI_FRAMES * hypo}
+            f"{fmt(times['replay'])}; kernel #1 {forwards} and kernel #3 {forwards3} forwards a "
+            f"solve; bit-equal, the generator where eager leaves it")
+        result["infant"][name] = {**times, "rows": MINI_FRAMES * hypo,
+                                  "kernel_3_forwards": forwards3}
         if name != "cond":
             with torch.no_grad():
                 prof_j = profiled(torch, lambda: infant_solve(
@@ -1611,8 +1714,9 @@ def time_track_reproj(torch, tsm, dev, rows):
 
 def profile_generic(torch, tsm, dev, rows, steps=50):
     """The generic OIL path alone, the ControlNet adapter (published width,
-    bf16 weights as under --dtype auto) on `rows` rows for `steps` steps
-    under torch.profiler: (wall s, device busy s, CUDA launches a step)."""
+    bf16 weights as under --dtype auto, kept off kernel #3 by use_kernel=False)
+    on `rows` rows for `steps` steps under torch.profiler: (wall s, device busy
+    s, CUDA launches a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from zedo_tpu_torch import presets
@@ -1623,7 +1727,8 @@ def profile_generic(torch, tsm, dev, rows, steps=50):
     params = to_bf16(torch, control_mlp.init_params(torch.Generator().manual_seed(0),
                                                     preset.model_cfg, device=dev))
     args = infant_oil_inputs(torch, dev, rows, 2)
-    cfg = dataclasses.replace(preset.zcfg.oil, iterations=steps, track_reproj=True)
+    cfg = dataclasses.replace(preset.zcfg.oil, iterations=steps, track_reproj=True,
+                              use_kernel=False)
 
     def run():
         return oil.run_oil(params, preset.model_cfg, preset.sde, preset.sampler, *args, None,
@@ -1646,9 +1751,11 @@ def phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card):
     working directory: (a) the plain model on MINI-RGBD and (b) on SyRIP at
     the published width with --hypo 20 (kernel #1 on all 1000 OIL
     forwards, at 51 and 36 columns); (c) --control and --cond on (a)'s data
-    at --hypo 1 (the generic path, no kernel); (d) the trained fixture as
-    MINI-RGBD frames in fp32 and bf16 against the JAX CLI's MPJPE."""
+    at --hypo 1 (kernel #3 and the generic path, no kernel #1); (d) the trained fixture as
+    MINI-RGBD frames in fp32 and bf16 against the JAX CLI's MPJPE. Kernel
+    #3's launches are counted in each CLI run: 1000 under --control."""
     from zedo_tpu_torch.models import control_mlp, score_mlp_cond
+    from zedo_tpu_torch.ops.kernels import control_kernel as ck
 
     result = {}
     cwd = os.getcwd()
@@ -1671,6 +1778,7 @@ def phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card):
                     ("mini_control", "mini", "control", 1, ["--control"], 0, MINI_FRAMES),
                     ("mini_cond", "mini", "cond", 1, ["--cond"], 0, MINI_FRAMES))
             for key, config, ckpt, hypo, flags, forwards, n in runs:
+                forwards3 = 1000 if flags == ["--control"] else 0
                 argv = ["--config", config, "--hypo", str(hypo), "--dtype", "auto", *flags,
                         "--ckpt_dir", "checkpoint", "--ckpt_name", f"{ckpt}.pth"]
                 if config == "mini":
@@ -1678,9 +1786,13 @@ def phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 name = f"run.opt_main_infant {' '.join(argv[:6 + len(flags)])}"
+                ck.reset_launch_counts()
                 out = cli_launches(sk, split, name, forwards,
                                    lambda: opt_main_infant.main(argv))
                 wall = time.perf_counter() - t0
+                launches3 = ck.launch_counts["fused_control_forward"]
+                if launches3 != forwards3:
+                    fail(f"{name}: kernel #3 launched {launches3} times, want {forwards3}")
                 poses, trace = out["poses"], out["reproj_px"]
                 n_joints = 17 if config == "mini" else 12
                 if tuple(poses.shape) != (n, hypo, n_joints, 3) or not torch.isfinite(poses).all():
@@ -1693,11 +1805,13 @@ def phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card):
                 log(f"infant {key} on {card}: {n} x {hypo} = {n * hypo} rows, solve "
                     f"{out['solve_s']:.3f} s (IPO {out['ipo_s']:.3f}, OIL {out['oil_s']:.3f}; "
                     f"{rate:.1f} poses/s), evaluation {out['eval_s']:.3f} s, CLI wall-clock "
-                    f"{wall:.3f} s; kernel #1 launches {out['kernel_1_launches']}; trace "
+                    f"{wall:.3f} s; kernel #1 launches {out['kernel_1_launches']}, kernel #3 "
+                    f"{launches3}; trace "
                     f"{trace.mean(0)[0]:.2f} -> {trace.mean(0)[-1]:.2f} px (random weights)")
                 result[key] = {"rows": n * hypo, "solve_s": out["solve_s"], "ipo_s": out["ipo_s"],
                                "oil_s": out["oil_s"], "eval_s": out["eval_s"], "wall_s": wall,
-                               "poses_per_s": rate, "kernel_1_launches": out["kernel_1_launches"]}
+                               "poses_per_s": rate, "kernel_1_launches": out["kernel_1_launches"],
+                               "kernel_3_launches": launches3}
         finally:
             os.chdir(cwd)
     rows = MINI_FRAMES * INFANT_HYPO
@@ -2991,6 +3105,7 @@ def main() -> int:
         from zedo_tpu_torch.models import score_mlp as tsm
         from zedo_tpu_torch.run import inference, opt_main, opt_main_infant
         from zedo_tpu_torch.ops.kernels import build
+        from zedo_tpu_torch.ops.kernels import control_kernel as ck
         from zedo_tpu_torch.ops.kernels import score_kernel as sk
         from zedo_tpu_torch.ops.kernels import score_kernel_probe as probe
         from zedo_tpu_torch.ops.kernels import score_kernel_split as split
@@ -3010,11 +3125,14 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    blocks_per_sm, build_s = phase_build(torch, build, sk, split)
+    blocks_per_sm, build_s = phase_build(torch, build, sk, split, ck)
 
     t0 = time.perf_counter()
     entry, weights, x = phase_kernel(torch, sk, tsm, bench_kernel.library_forward, dev)
     log(f"phase kernel #1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry_control = phase_control_kernel(torch, ck, dev)
+    log(f"phase kernel #3: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     entry["probe"] = phase_probe(torch, build, sk, probe, split, bench_kernel, weights, x,
                                  entry["ms"])
@@ -3046,6 +3164,8 @@ def main() -> int:
     t0 = time.perf_counter()
     infant = phase_infant(torch, sk, split, tsm, tbt, opt_main_infant, card)
     entry["launches_infant"] = {key: infant[key]["kernel_1_launches"] for key in ("mini", "syrip")}
+    entry_control["launches"] = infant["mini_control"]["kernel_3_launches"]
+    entry_control["launches_compiled"] = compiled["infant"]["control"]["kernel_3_forwards"]
     log(f"phase infant: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_accuracy(torch, sk, tbt, presets, ZeDOEstimator, dev)
@@ -3084,7 +3204,7 @@ def main() -> int:
                                       "serving": config_files["serving"]["launches"]}
     config_files["seconds"] = time.perf_counter() - t0
     log(f"phase config files: {config_files['seconds']:.1f} s")
-    for e in (entry, entry_split):
+    for e in (entry, entry_split, entry_control):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
     if probe.launch_counts != probe_launches:
@@ -3092,7 +3212,7 @@ def main() -> int:
              f"{probe_launches} after phase_probe")
 
     entry["resident_blocks_per_sm"] = blocks_per_sm
-    print(json.dumps({"kernels": [entry, entry_split], "request_s": walls, "ipo_s": ipo_s,
+    print(json.dumps({"kernels": [entry, entry_split, entry_control], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
                       "sampling": sampling, "multigpu": multigpu, "rest": rest,

@@ -772,3 +772,83 @@ def test_failed_captures_of_step_and_while_loop_raise(cuda_device, program):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised" in out.stdout
+
+
+# ------------------------------------------------ kernel #3 (the control adapter)
+
+
+def _control_operands(dev, hidden, gn, joints=12, seed=3):
+    """Kernel #3's packed operands at one t, on the adapter's seeded weights
+    (every leaf its own draw: the copy branch is not the trunk's copy)."""
+    from perfbench import weights, weights_control
+    from zedo_tpu_torch.ops.kernels import control_kernel as ck
+
+    cfg = tsm.ScoreMLPConfig(n_joints=joints, hidden_dim=hidden, embed_dim=512)
+    spec = {"n_joints": joints, "joint_dim": 3, "hidden_dim": hidden, "embed_dim": 512,
+            "n_blocks": 2, "sigma_min": 0.01, "sigma_max": 50, "num_scales": 1000}
+    params = weights.nested(weights_control.make(seed, spec, dev, torch.bfloat16))
+    packed = ck.pack_weights(params, cfg, dtype=torch.bfloat16, gn_dtype=GN[gn])
+    temb = tsm.time_embedding(params, cfg, torch.full((1,), 47.3, device=dev))[0]
+    return ck, packed, ck.step_vectors(params, cfg, temb).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gn", ["bf16", "f32"])
+@pytest.mark.parametrize("hidden,rows", [(1024, (10000, 1001, 129, 1)), (256, (2048, 77))])
+def test_control_kernel_matches_plain_version(cuda_device, hidden, rows, gn):
+    """Kernel #3 against its plain version at SyRIP's 36 columns: the
+    published width at the cell's 10,000 rows and ragged counts, and hidden
+    256 (groups of 8 channels). TOL as kernel #1's: the same bf16 operands,
+    f32 sums in another order."""
+    ck, packed, vecs = _control_operands(cuda_device, hidden, gn)
+    gen = torch.Generator().manual_seed(2)
+    for n in rows:
+        x = torch.randn(n, 36, generator=gen).to(cuda_device)
+        got = ck.fused_control_forward(x, packed, vecs)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 36)
+        want = ck.fused_control_forward_reference(x, packed, vecs)
+        assert (got - want).abs().max().item() < TOL, (n, (got - want).abs().max().item())
+    assert ck.load_library().zedo_control_blocks_per_sm() >= 1
+
+
+@pytest.mark.gpu
+def test_the_adapter_solves_on_kernel_3(cuda_device, monkeypatch):
+    """The ControlNet adapter on bf16 weights through the compiled infant
+    solve takes the fast path: kernel #3 once a step, no zedo_pc_step and no
+    kernel #1; the conditional model still takes the generic path."""
+    from perfbench import weights, weights_control
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.models import control_mlp, score_mlp_cond
+    from zedo_tpu_torch.ops.kernels import control_kernel as ck
+    from zedo_tpu_torch.zeroshot import infant
+
+    sde, zcfg, clusters, px, k = _solve_inputs(cuda_device, n=40, s=2, seed=4)
+    cfg = tsm.ScoreMLPConfig()
+    spec = {"n_joints": 17, "joint_dim": 3, "hidden_dim": 1024, "embed_dim": 512,
+            "n_blocks": 2, "sigma_min": 0.01, "sigma_max": 50, "num_scales": 1000}
+    params = weights.nested(weights_control.make(5, spec, cuda_device, torch.bfloat16))
+    steps = []
+    real_step = PCSampler.zedo_pc_step
+
+    def counted(self, *a, **kw):
+        steps.append(1)
+        return real_step(self, *a, **kw)
+
+    monkeypatch.setattr(PCSampler, "zedo_pc_step", counted)
+    tsk.reset_launch_counts()
+    before = ck.launch_counts["fused_control_forward"]
+    with torch.no_grad():
+        res = infant.solve_infant_jit(params, control_mlp.apply, cfg, sde,
+                                      PCSampler(sde=sde, eps=0.01), zcfg, clusters, px, k)
+    assert ck.launch_counts["fused_control_forward"] - before == zcfg.oil.iterations
+    assert not steps and tsk.launch_counts["fused_score_forward"] == 0
+    assert torch.isfinite(res.poses).all()
+    cond = tree_map(lambda a: a.to(torch.bfloat16),
+                    score_mlp_cond.init_params(torch.Generator().manual_seed(0), cfg,
+                                               device=cuda_device))
+    with torch.no_grad():
+        infant.solve_infant_jit(cond, score_mlp_cond.apply, cfg, sde,
+                                PCSampler(sde=sde, eps=0.01), zcfg, clusters, px, k,
+                                condition=px / 500.0 - 1.0)
+    assert steps

@@ -108,15 +108,26 @@ def models(kind, n_joints):
     jparams = jmod.init_params(jax.random.PRNGKey(1), jcfg)
     # a random prior at full output scale throws the poses metres away
     jparams["post_dense"] = jax.tree.map(lambda a: a * 0.05, jparams["post_dense"])
+    if kind == "control":
+        # the copy branch apart from the trunk it starts as, so that a fault
+        # in the control stream cannot hide behind the trunk's numbers
+        rng = np.random.RandomState(2)
+        for name in [k for k in jparams if k.endswith("_copy")]:
+            jparams[name] = jax.tree.map(
+                lambda a: a * jnp.asarray(rng.uniform(0.5, 1.5, a.shape), a.dtype),
+                jparams[name])
     return jmod, tmod, jcfg, tcfg, jparams, params_from_numpy(
         jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 @pytest.mark.parametrize("n_joints", [17, 12])
-@pytest.mark.parametrize("kind", ["plain", "cond"])
+@pytest.mark.parametrize("kind", ["plain", "cond", "control"])
 def test_solve_infant_matches_jax(n_joints, kind):
     """S = 2 over 5 samples, 40 IPO / 30 OIL steps (T re-solved from step
-    28), the conditional model conditioned per sample."""
+    28), the conditional model conditioned per sample; the ControlNet
+    adapter on the port's fast path (use_kernel forced: kernel #3's plain
+    version, its folded weights and step tables) against JAX's generic
+    path, which share one deterministic step."""
     jmod, tmod, jcfg, tcfg, jparams, tparams = models(kind, n_joints)
     _, px, k, clusters = scene(n_joints)
     mode, steps = MODES[n_joints], 30
@@ -126,7 +137,9 @@ def test_solve_infant_matches_jax(n_joints, kind):
                   t_norm=1.0, min_scale_t=0.0, max_scale_t=4.0)
     oil_kw = dict(iterations=steps, track_reproj=True)
     jz = jpipe.ZeDOConfig(ipo=jipo.IPOConfig(**ipo_kw), oil=joil.OILConfig(**oil_kw))
-    tz = tpipe.ZeDOConfig(ipo=tipo.IPOConfig(**ipo_kw), oil=toil.OILConfig(**oil_kw))
+    tz = tpipe.ZeDOConfig(ipo=tipo.IPOConfig(**ipo_kw),
+                          oil=toil.OILConfig(**oil_kw, use_kernel=kind == "control" or None))
+    want_path = {"plain": "plain", "cond": "generic", "control": "kernel3"}[kind]
     condition = (px / 500.0 - 1.0).astype(np.float32) if kind == "cond" else None
     j_apply = jmod.apply
     if condition is not None:
@@ -136,6 +149,8 @@ def test_solve_infant_matches_jax(n_joints, kind):
     want = jinf.solve_infant(jparams, j_apply, jcfg, jsde, JPCSampler(sde=jsde, eps=0.01), jz,
                              jnp.asarray(clusters), jnp.asarray(px), jnp.asarray(k),
                              pelvis_mode=mode, precision=jax.lax.Precision.HIGHEST)
+    assert toil.model_path(tparams, tcfg, tz.oil, tmod.apply,
+                           None if condition is None else torch.zeros(1)) == want_path
     got = tinf.solve_infant(tparams, tmod.apply, tcfg, tsde, TPCSampler(sde=tsde, eps=0.01),
                             tz, torch.from_numpy(clusters), torch.from_numpy(px),
                             torch.from_numpy(k), pelvis_mode=mode,

@@ -144,10 +144,10 @@ def test_phase_records_its_span_and_synchronizes_only_for_a_stopwatch(monkeypatc
     cuda = torch.device("cuda")
     sw = profiling.Stopwatch()
     with profiling.recording():
-        with pipeline._phase(None, "ipo", cuda):
+        with profiling.phase(None, "ipo", cuda):
             pass
         assert synced == []
-        with pipeline._phase(sw, "oil", cuda):
+        with profiling.phase(sw, "oil", cuda):
             pass
     assert synced == [cuda] and sw.counts == {"oil": 1}
     assert [s.name for s in profiling.spans()] == ["zedo.ipo", "zedo.oil"]

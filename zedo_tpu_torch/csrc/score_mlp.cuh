@@ -2,7 +2,10 @@
 // `FULL` epilogue only) and the probe library (score_mlp_probe.cu, the
 // eight epilogue variants of tools/bench_kernel.py --probe at the probe
 // shape): the layer arguments, the `wgmma_layer` kernel with its epilogue,
-// and the host sequence of one forward on it.
+// and the host sequence of one forward on it. Kernel #3
+// (score_mlp_control.cu) builds the same layer under its own name,
+// `control_layer`, with the epilogue's row strides read from the arguments
+// (CTRL).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +46,15 @@ struct LayerArgs {
   int ldo;
   int M;
   const __nv_bfloat16* ind;  // [N, 128] group indicator / group (GN_BCAST_VPU only)
+};
+
+// The epilogue's row strides in kernel #3's `control_layer` (CTRL), a
+// parameter of that kernel alone; kernel #1's `wgmma_layer` strides resid
+// and act by N.
+struct Strides {
+  int ldr;         // row stride of resid
+  int ldact;       // row stride of act
+  int resid_cols;  // resid holds the output's first resid_cols columns
 };
 
 using hopper::round_bf16;
@@ -284,9 +296,12 @@ __device__ __forceinline__ void bcast_rstd(float (&acc)[64], const float* sVec,
 
 // The epilogue of one thread's 2 rows x 64 columns of accumulators.
 // MODE: the layer's epilogue; GN: GroupNorm statistics mode (1 bf16, 0 f32);
-// G: channels per GroupNorm group (4, 8, 16, 32 or 64); EPI: the variant.
-template <int MODE, int GN, int G, int EPI>
-__device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], const float* sVec,
+// G: channels per GroupNorm group (4, 8, 16, 32 or 64); EPI: the variant;
+// CTRL: resid and act strided by st.ldr and st.ldact, resid kept for the
+// first st.resid_cols columns only (kernel #3), else both strided by p.N.
+template <int MODE, int GN, int G, int EPI, bool CTRL>
+__device__ __forceinline__ void epilogue(const LayerArgs& p, const Strides& st, float (&acc)[64],
+                                         const float* sVec,
                                          const float* sScale, const float* sBias,
                                          const uint32_t* sInd, int row0, int col0, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
@@ -294,7 +309,9 @@ __device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], c
   const int r = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
   const int gr[2] = {row0 + r, row0 + r + 8};
   const bool valid[2] = {gr[0] < p.M, gr[1] < p.M};
-  const bool keep[2] = {valid[0] && p.store_resid, valid[1] && p.store_resid};
+  const bool kept_cols = !CTRL || col0 < st.resid_cols;
+  const bool keep[2] = {valid[0] && p.store_resid && kept_cols,
+                        valid[1] && p.store_resid && kept_cols};
 
   if constexpr (MODE == BIAS_OUT) {
 #pragma unroll
@@ -317,9 +334,11 @@ __device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], c
     constexpr bool sq_bf16 = bf16 && EPI != GN_VPU;
     // this thread's two rows at its first column pair; column 8j is a
     // constant offset from there
-    const size_t o0 = (size_t)gr[0] * p.N + col0 + cq, o1 = (size_t)gr[1] * p.N + col0 + cq;
+    const int ldr = CTRL ? st.ldr : p.N, ldact = CTRL ? st.ldact : p.N;
+    const size_t o0 = (size_t)gr[0] * ldr + col0 + cq, o1 = (size_t)gr[1] * ldr + col0 + cq;
+    const size_t q0 = (size_t)gr[0] * ldact + col0 + cq, q1 = (size_t)gr[1] * ldact + col0 + cq;
     float* const rrow[2] = {p.resid + o0, p.resid + o1};
-    __nv_bfloat16* const arow[2] = {p.act + o0, p.act + o1};
+    __nv_bfloat16* const arow[2] = {p.act + q0, p.act + q1};
 
     // v = acc + vec and the rstd of the group that starts at j0, per row
     auto stats = [&](int j0, float (&out)[2]) {
@@ -444,10 +463,10 @@ __device__ __forceinline__ void epilogue(const LayerArgs& p, float (&acc)[64], c
   }
 }
 
-template <int MODE, int GN, int G, int EPI>
-__global__ void __launch_bounds__(THREADS, 2)
-wgmma_layer(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-            const LayerArgs p) {
+// The body of one layer's block: the TMA ring, the products, the epilogue.
+template <int MODE, int GN, int G, int EPI, bool CTRL>
+__device__ __forceinline__ void layer_block(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                            const LayerArgs& p, const Strides& st) {
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: the stages start on such a
   // boundary
@@ -537,26 +556,58 @@ wgmma_layer(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   }
   wgmma_wait<0>();
   accumulator_fence(acc);
-  epilogue<MODE, GN, G, EPI>(p, acc, sVec, sScale, sBias, sInd, row0, col0, tid);
+  epilogue<MODE, GN, G, EPI, CTRL>(p, st, acc, sVec, sScale, sBias, sInd, row0, col0, tid);
 }
 
+// Kernel #1's layer.
 template <int MODE, int GN, int G, int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+wgmma_layer(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            const LayerArgs p) {
+  layer_block<MODE, GN, G, EPI, false>(map_a, map_b, p, Strides{});
+}
+
+// Kernel #3's layer (score_mlp_control.cu): the same block with the
+// epilogue's strides `st`, under a name of its own so that traces tell the
+// two kernels apart.
+template <int MODE, int GN, int G>
+__global__ void __launch_bounds__(THREADS, 2)
+control_layer(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              const LayerArgs p, const Strides st) {
+  layer_block<MODE, GN, G, FULL, true>(map_a, map_b, p, st);
+}
+
+// The kernel of an instantiation: `control_layer` under CTRL, else
+// `wgmma_layer`.
+template <int MODE, int GN, int G, int EPI, bool CTRL>
+auto layer_kernel() {
+  if constexpr (CTRL)
+    return control_layer<MODE, GN, G>;
+  else
+    return wgmma_layer<MODE, GN, G, EPI>;
+}
+
+template <int MODE, int GN, int G, int EPI, bool CTRL>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const LayerArgs& p,
-                   cudaStream_t stream) {
+                   const Strides& st, cudaStream_t stream) {
   constexpr int smem = smem_bytes<EPI>();
   static int limits[MAX_DEVICES];
-  cudaError_t err = raise_smem_limit(limits, wgmma_layer<MODE, GN, G, EPI>, smem);
+  const auto kernel = layer_kernel<MODE, GN, G, EPI, CTRL>();
+  cudaError_t err = raise_smem_limit(limits, kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  wgmma_layer<MODE, GN, G, EPI><<<grid, THREADS, smem, stream>>>(map_a, map_b, p);
+  if constexpr (CTRL)
+    control_layer<MODE, GN, G><<<grid, THREADS, smem, stream>>>(map_a, map_b, p, st);
+  else
+    wgmma_layer<MODE, GN, G, EPI><<<grid, THREADS, smem, stream>>>(map_a, map_b, p);
   return cudaGetLastError();
 }
 
 // Blocks of one instantiation that an SM holds at a time; 0 on error.
-template <int MODE, int GN, int G, int EPI>
+template <int MODE, int GN, int G, int EPI, bool CTRL = false>
 int blocks_per_sm() {
   constexpr int smem = smem_bytes<EPI>();
-  auto kernel = wgmma_layer<MODE, GN, G, EPI>;
+  const auto kernel = layer_kernel<MODE, GN, G, EPI, CTRL>();
   int blocks = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
           cudaSuccess ||
@@ -566,15 +617,15 @@ int blocks_per_sm() {
   return blocks;
 }
 
-template <int MODE, int GN>
+template <int MODE, int GN, bool CTRL>
 cudaError_t launch_group(const CUtensorMap& a, const CUtensorMap& b, const LayerArgs& p,
-                         cudaStream_t s) {
+                         const Strides& st, cudaStream_t s) {
   switch (p.group) {
-    case 4: return launch<MODE, GN, 4, FULL>(a, b, p, s);
-    case 8: return launch<MODE, GN, 8, FULL>(a, b, p, s);
-    case 16: return launch<MODE, GN, 16, FULL>(a, b, p, s);
-    case 32: return launch<MODE, GN, 32, FULL>(a, b, p, s);
-    case 64: return launch<MODE, GN, 64, FULL>(a, b, p, s);
+    case 4: return launch<MODE, GN, 4, FULL, CTRL>(a, b, p, st, s);
+    case 8: return launch<MODE, GN, 8, FULL, CTRL>(a, b, p, st, s);
+    case 16: return launch<MODE, GN, 16, FULL, CTRL>(a, b, p, st, s);
+    case 32: return launch<MODE, GN, 32, FULL, CTRL>(a, b, p, st, s);
+    case 64: return launch<MODE, GN, 64, FULL, CTRL>(a, b, p, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -583,23 +634,24 @@ cudaError_t launch_group(const CUtensorMap& a, const CUtensorMap& b, const Layer
 // weights' map comes from the cache; the activations are allocated anew each
 // forward, so their map is encoded here. The shipped library (PROBE false)
 // takes every group of `takes` in both GroupNorm modes with the FULL
-// epilogue; the probe library only its shape, with the variant's.
-template <int MODE, int EPI, bool PROBE>
-cudaError_t layer(const LayerArgs& p, int w_rows, cudaStream_t s) {
+// epilogue; the probe library only its shape, with the variant's. CTRL:
+// kernel #3's `control_layer` in place of `wgmma_layer`, with strides `st`.
+template <int MODE, int EPI, bool PROBE, bool CTRL = false>
+cudaError_t layer(const LayerArgs& p, int w_rows, cudaStream_t s, const Strides& st = {}) {
   static_assert(PROBE || EPI == FULL, "the shipped library builds the FULL epilogue only");
   CUtensorMap map_a, map_b;
   if (!encode_bf16_map(&map_a, p.a, p.M, p.lda, BM, BK) ||
       !cached_bf16_map(&map_b, p.w, w_rows, p.N, BK, 64))
     return cudaErrorNotSupported;  // libcuda refused the map or lacks the call
   if constexpr (MODE == BIAS_OUT)
-    return launch<BIAS_OUT, 0, 32, FULL>(map_a, map_b, p, s);
+    return launch<BIAS_OUT, 0, 32, FULL, CTRL>(map_a, map_b, p, st, s);
   else if constexpr (PROBE)
     return p.gn_bf16 == 1 && p.group == PROBE_GROUP
-               ? launch<MODE, 1, PROBE_GROUP, EPI>(map_a, map_b, p, s)
+               ? launch<MODE, 1, PROBE_GROUP, EPI, false>(map_a, map_b, p, st, s)
                : cudaErrorInvalidValue;
   else
-    return p.gn_bf16 ? launch_group<MODE, 1>(map_a, map_b, p, s)
-                     : launch_group<MODE, 0>(map_a, map_b, p, s);
+    return p.gn_bf16 ? launch_group<MODE, 1, CTRL>(map_a, map_b, p, st, s)
+                     : launch_group<MODE, 0, CTRL>(map_a, map_b, p, st, s);
 }
 
 // widths and groups this kernel takes (score_kernel.kernel_path mirrors it)

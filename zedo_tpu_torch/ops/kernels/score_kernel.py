@@ -72,6 +72,22 @@ class PackedScoreWeights(NamedTuple):
     group_size: int  # channels per GroupNorm group
 
 
+def group_matrices(h: int, size: int, device) -> tuple:
+    """f32 on `device`: (I - P) [h, h], which subtracts each GroupNorm
+    group's mean; the group indicator / group size [h, LANE]; the broadcast
+    of a group's value to its members [LANE, h]. Groups of `size` channels."""
+    proj = np.zeros((h, h), np.float32)
+    ind = np.zeros((h, LANE), np.float32)
+    bcast = np.zeros((LANE, h), np.float32)
+    for i in range(h // size):
+        members = slice(i * size, (i + 1) * size)
+        proj[members, members] = 1.0 / size
+        ind[members, i] = 1.0 / size
+        bcast[i, members] = 1.0
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (np.eye(h, dtype=np.float32) - proj, ind, bcast))
+
+
 def pack_weights(params: dict, cfg, dtype=torch.bfloat16,
                  gn_dtype=None) -> PackedScoreWeights:
     """ScoreMLP params (torch [out, in] layout) -> the kernel's padded
@@ -91,10 +107,7 @@ def pack_weights(params: dict, cfg, dtype=torch.bfloat16,
     def w32(p):
         return p.to(torch.float32)
 
-    proj = np.zeros((h, h), np.float32)
-    for i in range(g):
-        proj[i * size:(i + 1) * size, i * size:(i + 1) * size] = 1.0 / size
-    center = torch.as_tensor(np.eye(h, dtype=np.float32) - proj, device=dev)
+    center, ind, bcast = group_matrices(h, size, dev)
 
     def pad2(x, rows, cols):
         return torch.nn.functional.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
@@ -116,12 +129,7 @@ def pack_weights(params: dict, cfg, dtype=torch.bfloat16,
         [(w32(params[k]["bias"]) + w32(params[kt]["bias"])) @ center
          for k, kt in zip(dense_names, tp_names)])
 
-    ind = np.zeros((h, LANE), np.float32)
-    bcast = np.zeros((LANE, h), np.float32)
-    for i in range(g):
-        ind[i * size:(i + 1) * size, i] = 1.0 / size
-        bcast[i, i * size:(i + 1) * size] = 1.0
-    bcast_scaled = torch.as_tensor(bcast, device=dev)[None] * gn_scale[:, None, :]
+    bcast_scaled = bcast[None] * gn_scale[:, None, :]
 
     def as_dt(a):
         return a.to(dtype).contiguous()
@@ -130,7 +138,7 @@ def pack_weights(params: dict, cfg, dtype=torch.bfloat16,
         w_pre=as_dt(w_pre), w_b=tuple(as_dt(w) for w in w_b), w_post=as_dt(w_post),
         gn_bias=gn_bias.contiguous(), bias_post=bias_post.contiguous(),
         t_proj_w=as_dt(t_proj_w), t_proj_b=t_proj_b,
-        ind=torch.as_tensor(ind, device=dev).to(gn_dtype),
+        ind=ind.to(gn_dtype),
         bcast_scaled=bcast_scaled.to(gn_dtype),
         gn_scale=gn_scale.contiguous(), group_size=size,
     )

@@ -17,10 +17,12 @@ takes a preset (mini, syrip) or the path of any config file the JAX CLI
 takes (e.g. configs/optim/concat_pose_optimization_mini.py). The data stay
 relative to the working directory (data/mini-rgbd, data/syrip), as in the
 JAX CLI. `--control` runs the ControlNet adapter and `--cond` the
-conditional model, conditioned on the normalized 2D keypoints; both take
-the generic OIL path. The plain model takes the fast path, where `--dtype
-auto` (bf16 on the card) runs every OIL forward through the hand-written
-CUDA score kernel.
+conditional model, conditioned on the normalized 2D keypoints; `--cond`
+takes the generic OIL path. The plain model and the ControlNet adapter take
+the fast path, where `--dtype auto` (bf16 on the card) runs every OIL
+forward through a hand-written CUDA kernel: kernel #1 for the plain model,
+kernel #3 for the adapter (on the CPU, or in fp32, the adapter takes the
+generic path).
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ def parse_args(argv=None):
     parser.add_argument("--control", default=False, action="store_true")
     parser.add_argument("--cond", default=False, action="store_true")
     parser.add_argument("--dtype", type=str, default="auto", choices=["auto", "fp32", "bf16"],
-                        help="auto = bf16 on CUDA (the hand-written score kernel on the "
-                             "plain model), fp32 on the CPU")
+                        help="auto = bf16 on CUDA (the hand-written kernels on the plain "
+                             "model and the --control adapter), fp32 on the CPU")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cluster_path", type=str, default=None,
                         help="cluster npy (default mini_cluster_{hypo}.npy)")

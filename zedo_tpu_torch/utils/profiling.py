@@ -7,8 +7,8 @@ Port of zedo_tpu/utils/profiling.py on torch.profiler:
   it in chrome://tracing or Perfetto).
 - `annotate(name)`: the port's span. The program opens one at each layer
   boundary (`zedo.predict`, `zedo.solve`, `zedo.ipo`, `zedo.oil`,
-  `zedo.evaluate`, `zedo.capture`, ...), a handful a solve or request and
-  never inside a step loop. A span has two sinks, each switched by one
+  `zedo.oil.tables`, `zedo.evaluate`, `zedo.capture`, ...), a handful a
+  solve or request and never inside a step loop. A span has two sinks, each switched by one
   module-level flag:
   - the device trace: while a torch profiler is active, the span is a
     record function `name`, so it lies in the kineto trace on the
@@ -29,7 +29,7 @@ Port of zedo_tpu/utils/profiling.py on torch.profiler:
 - `Stopwatch`: phase wall-clock aggregation with a one-line report, on
   `time.perf_counter`'s clock. It reads the host clock: a phase that
   launches device work ends with a `torch.cuda.synchronize()` of its own if
-  its time is to include that work.
+  its time is to include that work, as `phase(stopwatch, ...)`'s do.
 """
 from __future__ import annotations
 
@@ -101,6 +101,20 @@ class _Span:
         if self.function is not None:
             self.function.__exit__(*exc)
         return False
+
+
+@contextlib.contextmanager
+def phase(stopwatch, name: str, device: torch.device, span: str = None):
+    """The span `span` (default `zedo.<name>`); with a stopwatch, also its
+    phase `name`, which ends when the device has finished its work."""
+    with annotate(span or "zedo." + name):
+        if stopwatch is None:
+            yield
+            return
+        with stopwatch.phase(name):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
 
 def annotate(name: str):

@@ -34,7 +34,7 @@ from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.zeroshot.ipo import init_translation, run_ipo
 from zedo_tpu_torch.zeroshot.oil import OILResult, run_oil
 from zedo_tpu_torch.zeroshot import pipeline
-from zedo_tpu_torch.zeroshot.pipeline import SolveResult, ZeDOConfig, _phase, fold, unfold_result
+from zedo_tpu_torch.zeroshot.pipeline import SolveResult, ZeDOConfig, fold, unfold_result
 
 # skeleton of the max-bone-length diagnostic
 INFANT_SKELETON = [[0, 1], [1, 2], [3, 4], [4, 5], [6, 7], [7, 8], [9, 10], [10, 11]]
@@ -111,7 +111,7 @@ def _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDO
         pose0 = pose0.reshape(s * n, *cluster_poses.shape[1:])
         cond2d, k = fold(cond2d, s), fold(k, s)
 
-        with _phase(stopwatch, "ipo", cond2d.device):
+        with profiling.phase(stopwatch, "ipo", cond2d.device):
             t0 = init_translation_infant(cond2d, k, cfg.ipo.t_norm, pelvis_mode)
             ipo = run_ipo(pose0, cond2d, k, cfg.ipo, t=t0, n_groups=s, compiled=compiled)
             x0 = _rotate(ipo.rot_mat, ray_init_pose(cond2d, k, ipo.translation, pelvis_mode))
@@ -119,12 +119,13 @@ def _solve_folded_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDO
         # schedule: the same fraction of the configured iterations
         fixed = (refine_t_from * cfg.oil.iterations) // 1000
         oil_cfg = dataclasses.replace(cfg.oil, fixed_t_steps=fixed)
-        with _phase(stopwatch, "oil", cond2d.device):
+        with profiling.phase(stopwatch, "oil", cond2d.device):
             return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation, cond2d, k, None,
                            oil_cfg, model_apply=model_apply, generator=generator,
                            reproj_weight=fold(reproj_weight, s), n_groups=s,
                            # each folded row conditioned on its own sample's keypoints
-                           condition=fold(condition, s), compiled=compiled)
+                           condition=fold(condition, s), compiled=compiled,
+                           stopwatch=stopwatch)
 
 
 def solve_one_hypothesis_infant(params: dict, model_apply, model_cfg: score_mlp.ScoreMLPConfig,
@@ -151,7 +152,9 @@ def solve_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
     OILConfig.track_reproj, the [S, steps] reprojection trace.
 
     model_apply: score_mlp.apply (the fast path, kernel #1 on bf16 weights on
-    the card), control_mlp.apply or score_mlp_cond.apply (the generic path).
+    the card), control_mlp.apply (the fast path, kernel #3, on bf16 weights on
+    the card; the generic path elsewhere) or score_mlp_cond.apply (the generic
+    path).
     condition: optional per-sample model condition [N, j, c] (the --cond
     CLI's normalized 2D keypoints), tiled with the rows.
     generator: the generic path's noise; reproj_weight: optional [N]
@@ -182,16 +185,17 @@ def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg
     """The infant solve on a mesh (mirror of pipeline.solve_sharded, which
     see): every rank passes the same global inputs, solves its block of the
     N frames with `solve_infant_jit` and gets the global result. `condition`
-    [N, j, c] is sharded with the batch; the adapters take the generic path
-    on each rank, with `generator` seeded alike on every rank. Under
+    [N, j, c] is sharded with the batch; the conditional model takes the
+    generic path on each rank, with `generator` seeded alike on every rank,
+    and the ControlNet adapter on bf16 weights kernel #3, whose library the
+    first rank builds first. Under
     OILConfig.track_reproj the [S, steps] trace is averaged over the data
     axis (pad N with data.sharding.pad_batch and pass its mask as
     `row_mask`)."""
     weight = pipeline._pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
     cond2d, k, condition, weight = pipeline.shard_rows(mesh, data_axis, len(cond2d), cond2d,
                                                        k, condition, weight)
-    if model_apply is score_mlp.apply:
-        pipeline.prebuild_kernel(mesh, params, model_cfg)
+    pipeline.prebuild_kernel(mesh, params, model_cfg, cfg.oil, model_apply, condition)
     res = solve_infant_jit(params, model_apply, model_cfg, sde, sampler, cfg, cluster_poses,
                            cond2d, k, pelvis_mode=pelvis_mode, refine_t_from=refine_t_from,
                            generator=generator, reproj_weight=weight, condition=condition,

@@ -12,10 +12,15 @@ deterministic affine step
     x' = x + c1*x - c2*model(x, t*999)
 with c1 = 0.5*beta(t)/N and c2 = g2(t)/std(t)/N, the per-step time
 embeddings (or, on the kernel path, the per-step [5, H] layer vectors)
-precomputed. Every other model (the ControlNet and conditional adapters, a
-`scale_by_sigma` model) or sampler takes the generic path: one
-`PCSampler.zedo_pc_step` a step through the predictor/corrector registries,
-with noise from a per-call `torch.Generator` drawn in step order.
+precomputed. The ControlNet adapter (`control_mlp.apply`, unconditioned)
+takes it too where kernel #3 does (`use_kernel`: bf16 weights on the card
+at a width the kernel takes, or forced, its plain version on the CPU): its
+weights packed and its per-step [6, H] vectors built once a solve (the span
+`zedo.oil.tables`, the Stopwatch phase `oil_tables`). Every other model
+(the adapters elsewhere, the conditional model, a `scale_by_sigma` model)
+or sampler takes the generic path: one `PCSampler.zedo_pc_step` a step
+through the predictor/corrector registries, with noise from a per-call
+`torch.Generator` drawn in step order.
 
 Each path's step is a scan body (utils/compiled.py), JAX's `lax.scan`
 body: the carry is the pose, the translation and, under score_reuse, the
@@ -34,6 +39,7 @@ and each diagnostic is reduced per hypothesis, over its own N rows.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import NamedTuple, Optional
@@ -43,14 +49,16 @@ import torch
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.score import CONTINUOUS_LABEL_SCALE, get_score_fn, split_score_fn
 from zedo_tpu_torch.diffusion.sde import SDE, SubVPSDE
-from zedo_tpu_torch.models import score_mlp
+from zedo_tpu_torch.models import control_mlp, score_mlp
 from zedo_tpu_torch.ops.camera import backproject_rays
 from zedo_tpu_torch.ops.gradient_field import (
     confidence_weights, flip_negative_z, normal_matrix, normal_rhs,
     perpendicular_distance,
 )
+from zedo_tpu_torch.ops.kernels import control_kernel as ck
 from zedo_tpu_torch.ops.kernels import score_kernel as sk
 from zedo_tpu_torch.ops.linalg import inv3x3
+from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.utils.compiled import scan
 
 
@@ -64,8 +72,10 @@ class OILConfig:
     # the reference uses iterations // 5
     fixed_t_steps: Optional[int] = None
     # None = auto: the fused CUDA score kernel when the params are bf16, the
-    # device is CUDA and the architecture is one the kernel takes. True
-    # forces the kernel wrapper (its plain version for CPU tensors)
+    # device is CUDA and the architecture is one the kernel takes (kernel #1,
+    # or kernel #3 for the ControlNet adapter, which takes the fast path only
+    # then). True forces the kernel wrapper (its plain version for CPU
+    # tensors)
     use_kernel: Optional[bool] = None
     # evaluate the score network every k-th step and reuse its output in
     # between (opt-in; 1 = exact reference dynamics)
@@ -189,22 +199,26 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
             cond2d: torch.Tensor, k: torch.Tensor, conf: Optional[torch.Tensor],
             cfg: OILConfig, model_apply=None, generator: Optional[torch.Generator] = None,
             reproj_weight: Optional[torch.Tensor] = None, n_groups: int = 1,
-            condition: Optional[torch.Tensor] = None, compiled: bool = False) -> OILResult:
+            condition: Optional[torch.Tensor] = None, compiled: bool = False,
+            stopwatch=None) -> OILResult:
     """The full OIL loop.
 
     x0: [B, j, 3] rotated init pose; t0: [B, 1, 3] IPO translation;
     cond2d: [B, j, >=2]; conf: [B, j] or None.
     model_apply: a score_mlp.apply-compatible function (the ControlNet or
-    conditional adapter); any model but the plain ScoreMLP takes the generic
-    path. generator: the noise of the generic path (a generator on x0's
-    device; default: seeded 0); the fast path draws none.
+    conditional adapter); any model but the plain ScoreMLP and the ControlNet
+    adapter on kernel #3 takes the generic path. generator: the noise of the
+    generic path (a generator on x0's device; default: seeded 0); the fast
+    path draws none.
     reproj_weight: optional [B] per-row weights of the track_reproj trace,
     summing to 1 within each group (None = uniform).
     n_groups: groups (hypotheses) of B / n_groups contiguous rows folded into
     the batch; the diagnostics come back [n_groups, steps].
     condition: optional [B, j, c] model condition, passed to model_apply
     wherever the sampler passes none (the generic path).
-    compiled: the step as a compiled scan (CUDA graphs on the card)."""
+    compiled: the step as a compiled scan (CUDA graphs on the card).
+    stopwatch: a utils.profiling.Stopwatch that times the adapter's table
+    build as the phase `oil_tables` (ending when the device has finished)."""
     if not isinstance(sampler, PCSampler):
         raise TypeError(
             "the OIL loop requires the pc sampler (one corrector + predictor step per "
@@ -219,10 +233,12 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
     carry = {"x": x0, "t": t0}
     if cfg.score_reuse > 1:
         carry["out"] = torch.zeros_like(x0)
-    standard_model = ((model_apply is None or model_apply is score_mlp.apply)
-                      and condition is None and not model_cfg.scale_by_sigma)
-    if standard_model and _fast_supported(sde, sampler):
-        model_consts, static = _fast_program(params, model_cfg, sde, timestamps, cfg)
+    path = model_path(params, model_cfg, cfg, model_apply, condition)
+    if path != "generic" and _fast_supported(sde, sampler):
+        tables = (profiling.phase(stopwatch, "oil_tables", x0.device, span="zedo.oil.tables")
+                  if path == "kernel3" else contextlib.nullcontext())
+        with tables:
+            model_consts, static = _fast_program(params, model_cfg, sde, timestamps, cfg, path)
         consts.update(model_consts)
         body = functools.partial(_fast_body, cfg=cfg, n_groups=n_groups, **static)
     else:
@@ -247,6 +263,35 @@ def _kernel_eligible(params, model_cfg) -> bool:
             and w.device.type == "cuda")
 
 
+def _control_eligible(params, model_cfg) -> bool:
+    """Kernel #3's contract: an architecture it takes, bf16 weights and a
+    CUDA device."""
+    w = params["post_dense"]["weight"]
+    return (ck.kernel_supports(model_cfg) and w.dtype == torch.bfloat16
+            and w.device.type == "cuda")
+
+
+def model_path(params, model_cfg, cfg: OILConfig, model_apply=None, condition=None) -> str:
+    """The model the OIL loop runs on these params: "kernel1" (kernel #1),
+    "kernel3" (kernel #3, the ControlNet adapter), "plain" (score_mlp.apply
+    in the fast step) or "generic" (one `zedo_pc_step` a step). A sampler the
+    fast path does not take sends every model to the generic path besides."""
+    if condition is not None or model_cfg.scale_by_sigma:
+        return "generic"
+    if model_apply is control_mlp.apply:
+        kernel, eligible, off = "kernel3", _control_eligible, "generic"
+    elif model_apply is None or model_apply is score_mlp.apply:
+        kernel, eligible, off = "kernel1", _kernel_eligible, "plain"
+    else:
+        return "generic"
+    use = cfg.use_kernel if cfg.use_kernel is not None else eligible(params, model_cfg)
+    return kernel if use else off
+
+
+# the library of each kernel path (ops/kernels/build.py)
+KERNEL_LIBRARIES = {"kernel1": "score_mlp", "kernel3": "score_mlp_control"}
+
+
 def _geometry_step(consts, ys, counter, resolve: bool, x, t_cur, cfg: OILConfig, n_groups: int):
     """The step's translation re-solve and ray gradient: (x + grad, t)."""
     geo = consts["geo"]
@@ -258,9 +303,11 @@ def _geometry_step(consts, ys, counter, resolve: bool, x, t_cur, cfg: OILConfig,
     return x + grad, t_cur
 
 
-def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig):
+def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig, path: str):
     """The fast path's per-step tables and model operands (computed once per
-    solve, outside the scan) and its static arguments."""
+    solve, outside the scan) and its static arguments; `path` is
+    model_path's (kernel #3's: the adapter's packed weights and [steps, 6, H]
+    step vectors)."""
     # model compute dtype follows the params; geometry stays f32
     model_dtype = params["post_dense"]["weight"].dtype
     t = timestamps
@@ -276,31 +323,35 @@ def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig):
 
     temb_table = score_mlp.time_embedding(params, model_cfg, t * CONTINUOUS_LABEL_SCALE)
 
-    use_kernel = cfg.use_kernel
-    if use_kernel is None:
-        use_kernel = _kernel_eligible(params, model_cfg)
-    if use_kernel:
-        packed = sk.pack_weights(params, model_cfg, dtype=model_dtype,
-                                 gn_dtype=torch.float32 if cfg.gn_fp32 else None)
+    gn_dtype = torch.float32 if cfg.gn_fp32 else None
+    if path == "kernel3":
+        packed = ck.pack_weights(params, model_cfg, dtype=model_dtype, gn_dtype=gn_dtype)
+        consts.update(model=packed,
+                      steps=ck.step_vectors(params, model_cfg, temb_table).contiguous())
+    elif path == "kernel1":
+        packed = sk.pack_weights(params, model_cfg, dtype=model_dtype, gn_dtype=gn_dtype)
         # [steps, 5, H] per-step layer vectors, precomputed outside the scan
         consts.update(model=packed, steps=sk.step_vectors(packed, temb_table).contiguous())
     else:
         consts.update(model=params, steps=temb_table)
-    return consts, {"model_cfg": model_cfg, "model_dtype": model_dtype,
-                    "use_kernel": bool(use_kernel)}
+    return consts, {"model_cfg": model_cfg, "model_dtype": model_dtype, "path": path}
 
 
 def _fast_body(carry, consts, ys, counter, generator, variant, *, cfg: OILConfig,
-               n_groups: int, model_cfg, model_dtype, use_kernel: bool):
-    """One fast-path step: geometry, the model (kernel #1 or the plain
-    ScoreMLP) where the variant evaluates it, the deterministic update."""
+               n_groups: int, model_cfg, model_dtype, path: str):
+    """One fast-path step: geometry, the model (kernel #1, kernel #3 for the
+    ControlNet adapter, or the plain ScoreMLP) where the variant evaluates
+    it, the deterministic update."""
     resolve, evaluate = variant
     x, t_cur = _geometry_step(consts, ys, counter, resolve, carry["x"], carry["t"], cfg,
                               n_groups)
     out = carry.get("out")
     if evaluate:
         step = _at(consts["steps"], counter)
-        if use_kernel:
+        if path == "kernel3":
+            out = ck.fused_control_forward(x.reshape(x.shape[0], -1), consts["model"], step)
+            out = out.reshape(x.shape)
+        elif path == "kernel1":
             out = sk.fused_score_forward(x.reshape(x.shape[0], -1), consts["model"], step)
             out = out.reshape(x.shape)
         else:

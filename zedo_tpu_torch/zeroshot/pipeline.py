@@ -19,7 +19,6 @@ outside the graphs (JAX's `jax.jit(shard_map(solve))`).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -79,20 +78,6 @@ class SolveResult(NamedTuple):
     reproj_px: Optional[torch.Tensor] = None
 
 
-@contextlib.contextmanager
-def _phase(stopwatch, name: str, device: torch.device):
-    """The span `zedo.<name>`; with a stopwatch, also its phase `name`, which
-    ends when the device has finished its work."""
-    with profiling.annotate("zedo." + name):
-        if stopwatch is None:
-            yield
-            return
-        with stopwatch.phase(name):
-            yield
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-
-
 def fold(a: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
     """A per-sample tensor [N, ...] tiled to the folded rows [S*N, ...],
     hypothesis-major (row s*N + n is sample n)."""
@@ -114,14 +99,14 @@ def _solve_folded(params, model_cfg, sde, sampler, cfg: ZeDOConfig,
         pose0 = pose0[:, None].expand(s, n, *pose0.shape[1:]).reshape(s * n, *pose0.shape[1:])
         cond2d, k, conf = fold(cond2d, s), fold(k, s), fold(conf, s)
 
-        with _phase(stopwatch, "ipo", cond2d.device):
+        with profiling.phase(stopwatch, "ipo", cond2d.device):
             ipo = run_ipo(pose0, cond2d, k, cfg.ipo, n_groups=s, compiled=compiled)
             x0 = torch.einsum("bij,bnj->bni", ipo.rot_mat, pose0)
-        with _phase(stopwatch, "oil", cond2d.device):
+        with profiling.phase(stopwatch, "oil", cond2d.device):
             return run_oil(params, model_cfg, sde, sampler, x0, ipo.translation,
                            cond2d, k, conf, cfg.oil, model_apply=model_apply,
                            generator=generator, reproj_weight=fold(reproj_weight, s),
-                           n_groups=s, compiled=compiled)
+                           n_groups=s, compiled=compiled, stopwatch=stopwatch)
 
 
 def solve_one_hypothesis(params: dict, model_cfg: score_mlp.ScoreMLPConfig,
@@ -213,15 +198,17 @@ def shard_rows(mesh, data_axis: str, n: int, *arrays):
     return [put(a) for a in arrays]
 
 
-def prebuild_kernel(mesh, params, model_cfg) -> None:
-    """Build the score kernel on the mesh's first rank before the others load
-    it, where the OIL loop will launch it."""
-    from zedo_tpu_torch.zeroshot.oil import _kernel_eligible
+def prebuild_kernel(mesh, params, model_cfg, oil_cfg, model_apply=None, condition=None) -> None:
+    """Build the kernel that the OIL loop will launch on these params and
+    model (oil.model_path's) on the mesh's first rank before the others load
+    it."""
+    from zedo_tpu_torch.zeroshot.oil import KERNEL_LIBRARIES, model_path
 
-    if mesh.device.type == "cuda" and _kernel_eligible(params, model_cfg):
+    name = KERNEL_LIBRARIES.get(model_path(params, model_cfg, oil_cfg, model_apply, condition))
+    if mesh.device.type == "cuda" and name is not None:
         from zedo_tpu_torch.ops.kernels import build
 
-        collectives.main_first(mesh, lambda: build.build(("score_mlp",)))
+        collectives.main_first(mesh, lambda: build.build((name,)))
 
 
 def reduce_trace(res: SolveResult, mesh, data_axis: str) -> SolveResult:
@@ -262,7 +249,7 @@ def solve_sharded(mesh, params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: 
     dropped by sharding.unpad)."""
     weight = _pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
     cond2d, conf, k, weight = shard_rows(mesh, data_axis, len(cond2d), cond2d, conf, k, weight)
-    prebuild_kernel(mesh, params, model_cfg)
+    prebuild_kernel(mesh, params, model_cfg, cfg.oil, model_apply)
     res = solve_jit(params, model_cfg, sde, sampler, cfg, cluster_poses, cond2d, conf, k,
                     model_apply=model_apply, generator=generator, reproj_weight=weight,
                     stopwatch=stopwatch)
