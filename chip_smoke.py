@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the four kernel libraries from zedo_tpu_torch/csrc (kernel #1,
-     kernel #2, kernel #3, kernel #1's probe variants), one nvcc each,
+  2. build: the five kernel libraries from zedo_tpu_torch/csrc (kernel #1,
+     kernel #2, kernel #3, kernel #4, kernel #1's probe variants), one nvcc each,
      started together; registers and spills of their kernels, kernel #1's
      and kernel #3's resident blocks per SM, the HGMMA (wgmma) and UTMALDG
      (TMA load) opcodes in the SASS of kernels #1, #2 and #3, and the
@@ -31,6 +31,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      in both modes, with its plain version's and control_mlp.apply's in
      bf16 (the library) times and its roofline bound on the products it
      executes;
+ 3c. kernel #4 (ipo_step, one IPO Adam step of every row): against its
+     plain version on the same card tensors, bit for bit, at the H36M solve
+     (44,300 rows, 3 keys, z), SyRIP's (10,000 x 12 keys, xyz) and the
+     low-latency serving bucket (160 x 3); timed alone a step beside its
+     bytes bound and its plain version, and a compiled IPO run (500 steps,
+     100 at the bucket) on it in turns with the same run on the autograd
+     step graph it replaced (kernel, autograd, autograd, kernel); its
+     launches counted in phase 5 (one a step of every request);
  3b. kernel #1's eight epilogue variants (phase_probe, score_kernel_probe:
      tools/bench_kernel.py --probe's full, no_silu, no_gn, dense_only,
      tanh_silu, bf16_silu, gn_vpu, gn_bcast_vpu), built from the repo's
@@ -179,7 +187,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      seeds apart) and a uniform reproj_weight against the unweighted trace.
 
 Kernel #3's launches are counted in every phase that runs the ControlNet
-adapter (5b, 7) and the script fails unless it ran on those paths.
+adapter (5b, 7) and the script fails unless it ran on those paths; kernel
+#4's in phase 5.
 
 Prints a `kernels` JSON line and the card's name and power limit before the
 last line, and as the last line
@@ -280,6 +289,12 @@ PEAK_BYTES = 3.35e12
 
 HEADLINE_N, HEADLINE_S = 886, 50
 N_REQUESTS = 3
+# phase_ipo_kernel: (rows, keypoint_list, rot_axes, hypotheses, IPO steps, max
+# scale) of the H36M solve, the SyRIP solve and the low-latency bucket
+IPO_SHAPES = {"h36m": (HEADLINE_N * HEADLINE_S, (0, 1, 4), "z", HEADLINE_S, 500, 2.0),
+              "syrip": (500 * 20, tuple(range(12)), "xyz", 20, 500, 8.0),
+              "serving": (32 * 5, (0, 1, 4), "z", 5, 100, 2.0)}
+IPO_GRAPH_STEPS = 50  # kernel #4's steps in the graph that times it
 WILD_N = 64  # poses of the wild inference run
 KERNEL_TOL = 2e-2  # max |kernel - plain|: same bf16 operands, f32 sums in another order
 # max |wgmma product - torch.matmul| / max |product|: exact bf16 x bf16
@@ -454,7 +469,8 @@ def phase_build(torch, build, sk, split, ck):
         res = build.resources(lib.ptxas)
         if not res:
             log("ptxas: (library was already built)")
-        for label in ("wgmma_layer", "dense_layer", "score_mlp_split", "control_layer"):
+        for label in ("wgmma_layer", "dense_layer", "score_mlp_split", "control_layer",
+                      "ipo_step"):
             regs = [v for k, v in res.items() if label in k]
             if regs:
                 log(f"  {name} {label}: {len(regs)} kernels, registers "
@@ -690,6 +706,139 @@ def phase_control_kernel(torch, ck, dev):
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "rows": rows, "columns": 36, "hidden": 1024,
             "tflops": flops / ms["bf16"] / 1e9, "roofline_share": bound_ms / ms["bf16"]}
+
+
+def ipo_scene(torch, dev, rows, seed=0):
+    """rows root-relative poses of 17 joints, their keypoints under a random
+    rotation about z with pixel noise, and intrinsics, on the card."""
+    rng = np.random.RandomState(seed)
+    pose = rng.randn(rows, 17, 3).astype(np.float32) * 0.25
+    pose -= pose[:, :1]
+    angle = rng.uniform(-0.5, 0.5, rows)
+    cos, sin = np.cos(angle), np.sin(angle)
+    rotated = np.stack([cos[:, None] * pose[..., 0] - sin[:, None] * pose[..., 1],
+                        sin[:, None] * pose[..., 0] + cos[:, None] * pose[..., 1],
+                        pose[..., 2]], -1)
+    k = np.zeros((rows, 3, 3), np.float32)
+    k[:, 0, 0] = k[:, 1, 1] = 1145.0
+    k[:, :2, 2] = 512.0
+    k[:, 2, 2] = 1.0
+    cam = np.einsum("nij,nkj->nki", k, rotated + np.array([0.1, -0.2, 4.5], np.float32))
+    px = cam[..., :2] / cam[..., 2:] + rng.randn(rows, 17, 2).astype(np.float32) * 2
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return put(pose), put(px), put(k)
+
+
+def ipo_step_bytes(rows, keys, axes):
+    """Bytes one IPO step must move: its constants read, each learned leaf's
+    value and two moments read and written, the row's loss written."""
+    return 4 * rows * ((5 * keys + 12) + 6 * (2 + len(axes)) + 1)
+
+
+def phase_ipo_kernel(torch, ik, dev):
+    """Kernel #4 against its plain version on the same card tensors, timed
+    alone and as compiled IPO runs in turns with the autograd step graph it
+    replaced; returns its JSON entry (without the main path's launches)."""
+    from zedo_tpu_torch.zeroshot import ipo
+
+    shapes = {}
+    for name, (rows, keys, axes, s, steps, hi) in IPO_SHAPES.items():
+        pose, px, k = ipo_scene(torch, dev, rows)
+        kl = list(keys)
+        t = ipo.init_translation(px, k, 3.0)
+        consts = ik.pack(pose[:, kl], px[:, kl], t, k)
+        corrections = ipo.adam_corrections(steps, torch.float32, dev)
+        counter = torch.tensor([steps // 2], device=dev)
+        scalars = dict(weight=1.0 / (rows // s * len(keys) * 2), lr=0.1, lo=0.5, hi=hi,
+                       b1=ipo.B1, b2=ipo.B2, eps=ipo.EPS)
+        gen = torch.Generator().manual_seed(5)
+        params = {"rot_vect": 1 + 0.2 * torch.randn(rows, 1, generator=gen),
+                  "scale": 1.2 + 0.6 * torch.randn(rows, 1, 1, generator=gen)}
+        for a in axes:
+            params[f"rot_vect_{a}"] = 0.2 * torch.randn(rows, 1, generator=gen)
+        state = {"params": params,
+                 "mu": {n: 0.05 * torch.randn(p.shape, generator=gen) for n, p in params.items()},
+                 "nu": {n: 0.01 * torch.randn(p.shape, generator=gen).abs()
+                        for n, p in params.items()},
+                 "loss": torch.zeros(rows)}
+
+        def copy(tree):
+            if isinstance(tree, dict):
+                return {n: copy(v) for n, v in tree.items()}
+            return tree.to(dev, copy=True)
+
+        got, want = copy(state), copy(state)
+        ik.reset_launch_counts()
+        ik.ipo_step(consts, got, corrections, counter, **scalars)
+        torch.cuda.synchronize()
+        if ik.launch_counts["ipo_step"] != 1:
+            fail(f"kernel #4: {ik.launch_counts}, want one step")
+        ik.ipo_step_reference(consts, want, corrections, counter, **scalars)
+        for part in ("params", "mu", "nu"):
+            for leaf in got[part]:
+                if not torch.equal(got[part][leaf], want[part][leaf]):
+                    diff = (got[part][leaf] - want[part][leaf]).abs().max().item()
+                    fail(f"kernel #4 at {name}: {part}[{leaf}] differs from its plain version "
+                         f"by up to {diff}")
+        if not torch.equal(got["loss"], want["loss"]):
+            fail(f"kernel #4 at {name}: the rows' L1 sums differ from its plain version")
+        # the kernel's pace as the solve replays it: a graph of back-to-back
+        # steps (an eager call's wrapper takes longer on the host than the step)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(IPO_GRAPH_STEPS):
+                ik.ipo_step(consts, got, corrections, counter, **scalars)
+        step_ms = cuda_ms(torch, graph.replay, 10, 2) / IPO_GRAPH_STEPS
+        wrapper_us = host_us(torch, lambda: ik.ipo_step(consts, got, corrections, counter,
+                                                        **scalars))
+        plain_ms = cuda_ms(torch, lambda: ik.ipo_step_reference(consts, want, corrections,
+                                                                counter, **scalars), 5, 1)
+        bound_ms = ipo_step_bytes(rows, len(keys), axes) / PEAK_BYTES * 1e3
+
+        # a whole compiled IPO run on each step body, in turns
+        cfg = ipo.IPOConfig(iterations=steps, keypoint_list=keys, rot_axes=axes, max_scale_t=hi)
+        real_path = ipo.step_path
+
+        def run(path):
+            ipo.step_path = lambda device, dtype: path
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = ipo.run_ipo(pose, px, k, cfg, n_groups=s, compiled=True)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, res
+            finally:
+                ipo.step_path = real_path
+
+        for path in ("kernel", "autograd"):  # captures
+            run(path)
+        walls = {"kernel": [], "autograd": []}
+        for path in ("kernel", "autograd", "autograd", "kernel"):
+            wall, res = run(path)
+            walls[path].append(wall * 1e3)
+            if not torch.isfinite(res.quaternion).all():
+                fail(f"IPO at {name} on the {path} step: non-finite quaternions")
+        shapes[name] = {"rows": rows, "keys": len(keys), "axes": axes, "hypotheses": s,
+                        "step_ms": step_ms, "wrapper_host_us": wrapper_us,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "roofline_share": bound_ms / step_ms, "steps": steps,
+                        "run_ms": float(np.mean(walls["kernel"])),
+                        "autograd_run_ms": float(np.mean(walls["autograd"]))}
+        log(f"ipo_step {name} ({rows} rows x {len(keys)} keys, {axes}): kernel "
+            f"{step_ms * 1e3:.2f} us a step in a graph ({bound_ms * 1e3:.2f} us bytes bound, "
+            f"{bound_ms / step_ms:.3f} of it; the wrapper {wrapper_us:.1f} us on the host), "
+            f"plain version {plain_ms:.3f} ms; compiled IPO of "
+            f"{steps} steps {walls['kernel'][0]:.2f} / {walls['kernel'][1]:.2f} ms on the kernel, "
+            f"{walls['autograd'][0]:.2f} / {walls['autograd'][1]:.2f} ms on the autograd step "
+            f"graph")
+    ik.reset_launch_counts()
+    return {"name": "ipo_step", "route": "cuda", "source": "zedo_tpu_torch/csrc/ipo_step.cu",
+            "replaces": None, "launches": None, "shapes": shapes,
+            "ms": shapes["h36m"]["step_ms"], "bound_ms": shapes["h36m"]["bound_ms"],
+            "plain_ms": shapes["h36m"]["plain_ms"], "bound_by": "bytes"}
 
 
 def operand_stream_bytes(sk, rows, hidden, io):
@@ -3106,6 +3255,7 @@ def main() -> int:
         from zedo_tpu_torch.run import inference, opt_main, opt_main_infant
         from zedo_tpu_torch.ops.kernels import build
         from zedo_tpu_torch.ops.kernels import control_kernel as ck
+        from zedo_tpu_torch.ops.kernels import ipo_kernel as ik
         from zedo_tpu_torch.ops.kernels import score_kernel as sk
         from zedo_tpu_torch.ops.kernels import score_kernel_probe as probe
         from zedo_tpu_torch.ops.kernels import score_kernel_split as split
@@ -3134,6 +3284,9 @@ def main() -> int:
     entry_control = phase_control_kernel(torch, ck, dev)
     log(f"phase kernel #3: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    entry_ipo = phase_ipo_kernel(torch, ik, dev)
+    log(f"phase kernel #4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     entry["probe"] = phase_probe(torch, build, sk, probe, split, bench_kernel, weights, x,
                                  entry["ms"])
     # no later phase may launch a probe kernel: these counts stay to the end
@@ -3145,9 +3298,15 @@ def main() -> int:
     log(f"phase kernel #2: {time.perf_counter() - t0:.1f} s")
     del weights, x
     t0 = time.perf_counter()
+    ik.reset_launch_counts()
     entry["launches"], walls, ipo_s, busy_s, per_forward = phase_main_path(
         torch, sk, tsm, presets, ZeDOEstimator, bench.build_inputs, dev)
     entry["cuda_launches_per_forward"] = per_forward
+    # N_REQUESTS requests, IPO alone and the profiled request, a step each
+    entry_ipo["launches"] = ik.launch_counts["ipo_step"]
+    want = (N_REQUESTS + 2) * presets.h36m().zcfg.ipo.iterations
+    if entry_ipo["launches"] != want:
+        fail(f"kernel #4 took {entry_ipo['launches']} steps in phase 5, want {want}")
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     compiled = phase_compiled(torch, sk, split, tsm, presets, bench, ZeDOEstimator, card, dev)
@@ -3204,7 +3363,7 @@ def main() -> int:
                                       "serving": config_files["serving"]["launches"]}
     config_files["seconds"] = time.perf_counter() - t0
     log(f"phase config files: {config_files['seconds']:.1f} s")
-    for e in (entry, entry_split, entry_control):
+    for e in (entry, entry_split, entry_control, entry_ipo):
         if not e["launches"]:
             fail(f"{e['name']} was not launched on its path")
     if probe.launch_counts != probe_launches:
@@ -3212,7 +3371,7 @@ def main() -> int:
              f"{probe_launches} after phase_probe")
 
     entry["resident_blocks_per_sm"] = blocks_per_sm
-    print(json.dumps({"kernels": [entry, entry_split, entry_control], "request_s": walls, "ipo_s": ipo_s,
+    print(json.dumps({"kernels": [entry, entry_split, entry_control, entry_ipo], "request_s": walls, "ipo_s": ipo_s,
                       "device_busy_s": busy_s, "headline_s": headline["value"],
                       "batch_cli": batch_cli, "infant": infant, "training": training,
                       "sampling": sampling, "multigpu": multigpu, "rest": rest,

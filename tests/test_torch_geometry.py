@@ -61,6 +61,41 @@ def test_linalg_matches_jax(seed):
     _close(tla.inv_intrinsics(_t(k)), jla.inv_intrinsics(jnp.asarray(k)))
 
 
+def _per_entry_inverse_and_rotation(m, q):
+    """inv3x3 and quaternion_to_matrix written entry by entry, as the JAX
+    package writes them."""
+    a, b, c, d, e, f, g, h, i = [m[..., r, s] for r in range(3) for s in range(3)]
+    det = a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+    adj = torch.stack([e * i - f * h, c * h - b * i, b * f - c * e,
+                       f * g - d * i, a * i - c * g, c * d - a * f,
+                       d * h - e * g, b * g - a * h, a * e - b * d], -1).reshape(m.shape)
+    r, x, y, z = torch.unbind(q, -1)
+    two_s = 2.0 / (q * q).sum(-1)
+    rot = torch.stack((
+        1 - two_s * (y * y + z * z), two_s * (x * y - z * r), two_s * (x * z + y * r),
+        two_s * (x * y + z * r), 1 - two_s * (x * x + z * z), two_s * (y * z - x * r),
+        two_s * (x * z - y * r), two_s * (y * z + x * r), 1 - two_s * (x * x + y * y)), -1)
+    return det, adj, adj / det[..., None, None], rot.reshape(q.shape[:-1] + (3, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_batched_closed_forms_round_as_the_per_entry_formulas(dtype):
+    """det3x3, adjugate3x3, inv3x3 and quaternion_to_matrix take a few
+    batched launches, and each entry is the same products and sums as the
+    per-entry formula: bit for bit, signed zeros included."""
+    gen = torch.Generator().manual_seed(3)
+    m = torch.randn(4, 5, 3, 3, generator=gen, dtype=dtype) * 10.0 ** torch.randint(
+        -3, 4, (4, 5, 1, 1), generator=gen).to(dtype)
+    q = torch.randn(4, 5, 4, generator=gen, dtype=dtype)
+    q[..., 1:][q[..., 1:].abs() < 0.3] = 0.0
+    det, adj, inv, rot = _per_entry_inverse_and_rotation(m, q)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    for got, want in [(tla.det3x3(m), det), (tla.adjugate3x3(m), adj), (tla.inv3x3(m), inv),
+                      (trot.quaternion_to_matrix(q), rot)]:
+        assert got.shape == want.shape
+        assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_camera_and_rotations_match_jax(seed):
     k, pose, t, px, _ = _scene(seed)

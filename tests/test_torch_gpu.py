@@ -852,3 +852,157 @@ def test_the_adapter_solves_on_kernel_3(cuda_device, monkeypatch):
                                 PCSampler(sde=sde, eps=0.01), zcfg, clusters, px, k,
                                 condition=px / 500.0 - 1.0)
     assert steps
+
+
+# ------------------------------------------------- IPO's step (kernel #4)
+
+IPO_SHAPES = {"h36m": (44300, (0, 1, 4), "z", 50), "syrip": (10000, tuple(range(12)), "xyz", 20),
+              "serving": (160, (0, 1, 4), "z", 5)}
+
+
+def _ipo_scene(dev, rows, keys, seed=0):
+    """rows root-relative poses of 17 joints, keypoints projected from them
+    under a random rotation about z, with pixel noise, and intrinsics."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pose = rng.randn(rows, 17, 3).astype(np.float32) * 0.25
+    pose -= pose[:, :1]
+    angle = rng.uniform(-0.5, 0.5, rows)
+    rot = np.zeros((rows, 3, 3), np.float32)
+    rot[:, 0, 0] = rot[:, 1, 1] = np.cos(angle)
+    rot[:, 0, 1], rot[:, 1, 0] = -np.sin(angle), np.sin(angle)
+    rot[:, 2, 2] = 1.0
+    k = np.zeros((rows, 3, 3), np.float32)
+    k[:, 0, 0] = k[:, 1, 1] = 1145.0
+    k[:, :2, 2] = 512.0
+    k[:, 2, 2] = 1.0
+    cam = np.einsum("nij,nkj->nki", k, np.einsum("nij,nkj->nki", rot, pose)
+                    + np.array([0.1, -0.2, 4.5], np.float32))
+    px = cam[..., :2] / cam[..., 2:] + rng.randn(rows, 17, 2).astype(np.float32) * 2
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    return put(pose), put(px), put(k)
+
+
+def _ipo_carry(dev, rows, axes, seed=1):
+    """A state mid-way through a solve: parameters, moments and a loss."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(*shape, scale=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + mean).to(dev)
+
+    params = {"rot_vect": draw(rows, 1, scale=0.2, mean=1.0),
+              "scale": draw(rows, 1, 1, scale=0.4, mean=1.2)}
+    for a in axes:
+        params[f"rot_vect_{a}"] = draw(rows, 1, scale=0.2)
+    return {"params": params,
+            "mu": {n: draw(*p.shape, scale=0.05) for n, p in params.items()},
+            "nu": {n: draw(*p.shape, scale=0.01).abs() for n, p in params.items()},
+            "loss": torch.zeros(rows, device=dev)}
+
+
+def _same_tree(a, b):
+    from zedo_tpu_torch.utils.compiled import _leaves
+
+    for x, y in zip(_leaves(a), _leaves(b), strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(IPO_SHAPES))
+def test_ipo_kernel_matches_plain_version(cuda_device, shape, monkeypatch):
+    """Kernel #4 against its plain version on the same card tensors, bit for
+    bit: one step from a state mid-way through a solve, and whole runs of
+    `run_ipo` (500 steps; 100 at the serving bucket), the plain version's
+    step substituted in the eager loop."""
+    import functools
+
+    from zedo_tpu_torch.ops.kernels import ipo_kernel
+    from zedo_tpu_torch.zeroshot import ipo
+
+    rows, keys, axes, s = IPO_SHAPES[shape]
+    pose, px, k = _ipo_scene(cuda_device, rows, keys)
+    kl = list(keys)
+    t = ipo.init_translation(px, k, 3.0)
+    consts = ipo_kernel.pack(pose[:, kl], px[:, kl], t, k)
+    corrections = ipo.adam_corrections(500, torch.float32, cuda_device)
+    counter = torch.tensor([6], device=cuda_device)
+    scalars = dict(weight=1.0 / (rows // s * len(keys) * 2), lr=0.1, lo=0.5, hi=2.0, b1=ipo.B1,
+                   b2=ipo.B2, eps=ipo.EPS)
+    got, want = _ipo_carry(cuda_device, rows, axes), _ipo_carry(cuda_device, rows, axes)
+    before = ipo_kernel.launch_counts["ipo_step"]
+    ipo_kernel.ipo_step(consts, got, corrections, counter, **scalars)
+    torch.cuda.synchronize()
+    assert ipo_kernel.launch_counts["ipo_step"] == before + 1
+    ipo_kernel.ipo_step_reference(consts, want, corrections, counter, **scalars)
+    _same_tree(got, want)
+    assert torch.isfinite(got["loss"]).all() and (got["loss"] > 0).all()
+
+    cfg = ipo.IPOConfig(iterations=100 if shape == "serving" else 500, keypoint_list=keys,
+                        rot_axes=axes)
+    run = functools.partial(ipo.run_ipo, pose, px, k, cfg, n_groups=s)
+    got = run()
+    monkeypatch.setattr(ipo_kernel, "ipo_step", ipo_kernel.ipo_step_reference)
+    want = run()
+    _same_tree(tuple(got), tuple(want))
+
+
+@pytest.mark.gpu
+def test_ipo_kernel_counts_a_step_a_replay(cuda_device):
+    """`launch_counts["ipo_step"]` counts one a step through graph replays:
+    500 in a `solve_jit` and in a `solve_infant_jit`, 100 in a low-latency
+    `predict`, and 0 for a solve on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from zedo_tpu_torch import bench_trained as tbt
+    from zedo_tpu_torch import presets
+    from zedo_tpu_torch.diffusion.sampling import PCSampler
+    from zedo_tpu_torch.ops.kernels import ipo_kernel
+    from zedo_tpu_torch.serving import ZeDOEstimator
+    from zedo_tpu_torch.zeroshot import infant, ipo, pipeline
+
+    sde, zcfg, clusters, px, k = _solve_inputs(cuda_device, n=40, s=3, seed=2)
+    zcfg = dataclasses.replace(zcfg, ipo=ipo.IPOConfig(iterations=500))
+    cfg = tsm.ScoreMLPConfig(hidden_dim=256, embed_dim=128)
+    params = tree_map(lambda a: a.to(torch.bfloat16),
+                      tsm.init_params(torch.Generator().manual_seed(1), cfg, device=cuda_device))
+    sampler = PCSampler(sde=sde, eps=0.01)
+    for call in range(2):
+        ipo_kernel.reset_launch_counts()
+        with torch.no_grad():
+            pipeline.solve_jit(params, cfg, sde, sampler, zcfg, clusters, px, None, k)
+        assert ipo_kernel.launch_counts["ipo_step"] == 500, call
+        ipo_kernel.reset_launch_counts()
+        with torch.no_grad():
+            infant.solve_infant_jit(params, tsm.apply, cfg, sde, sampler, zcfg, clusters, px, k)
+        assert ipo_kernel.launch_counts["ipo_step"] == 500, call
+    est = ZeDOEstimator.from_torch_checkpoint(
+        tbt.CHECKPOINT, tbt.CLUSTERS, preset=presets.h36m(hidden_dim=256, embed_dim=128),
+        dtype="bf16", batch_bucket=8, device=cuda_device).low_latency()
+    _, kk, kp = tbt.make_scenes(np.load(f"{tbt.FIXTURE}/family.npz"), 8)
+    ipo_kernel.reset_launch_counts()
+    est.predict(kp, kk)
+    assert ipo_kernel.launch_counts["ipo_step"] == est.zcfg.ipo.iterations == 100
+    ipo_kernel.reset_launch_counts()
+    cpu = tree_map(lambda a: a.float().cpu(), params)
+    with torch.no_grad():
+        pipeline.solve_jit(cpu, cfg, sde, sampler, zcfg, clusters.cpu(), px.cpu(), None, k.cpu())
+    assert ipo_kernel.launch_counts["ipo_step"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["syrip", "serving"])
+def test_ipo_kernel_compiled_is_bit_equal_to_eager(cuda_device, shape):
+    """`run_ipo` on kernel #4: the compiled scan (a graph a step, replayed)
+    against the eager loop, and a second compiled call against the first,
+    bit for bit."""
+    from zedo_tpu_torch.zeroshot import ipo
+
+    rows, keys, axes, s = IPO_SHAPES[shape]
+    pose, px, k = _ipo_scene(cuda_device, rows, keys, seed=3)
+    cfg = ipo.IPOConfig(iterations=200, keypoint_list=keys, rot_axes=axes, max_scale_t=8.0)
+    eager = ipo.run_ipo(pose, px, k, cfg, n_groups=s)
+    for _ in range(2):
+        _same_tree(tuple(ipo.run_ipo(pose, px, k, cfg, n_groups=s, compiled=True)), tuple(eager))

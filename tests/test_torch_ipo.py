@@ -1,5 +1,6 @@
 """zedo_tpu_torch IPO against the JAX package, including hypotheses folded
-into the batch (each keeps its own mean loss)."""
+into the batch (each keeps its own mean loss), on the autograd step and on
+kernel #4's plain version (the step the card takes in float32)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,14 +33,23 @@ def _rot_z(pose, angle):
     return (pose @ r.T).astype(np.float32)
 
 
+def _plain_step(monkeypatch):
+    """run_ipo's steps on the kernel path: its plain version on the CPU."""
+    monkeypatch.setattr(tipo, "step_path", lambda device, dtype: "kernel")
+
+
 def _compare(got, want):
     for name in ("rot_mat", "translation", "quaternion", "scale"):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                    atol=2e-4, rtol=1e-3, err_msg=name)
 
 
-@pytest.mark.parametrize("iterations", [5, 60])
-def test_run_ipo_matches_jax(iterations):
+@pytest.mark.parametrize("iterations,plain", [
+    pytest.param(5, False, id="5"), pytest.param(60, False, id="60"),
+    pytest.param(5, True, id="5-plain"), pytest.param(60, True, id="60-plain")])
+def test_run_ipo_matches_jax(iterations, plain, monkeypatch):
+    if plain:
+        _plain_step(monkeypatch)
     pose, px, k = _scene(iterations)
     jcfg = jipo.IPOConfig(iterations=iterations)
     tcfg = tipo.IPOConfig(iterations=iterations)
@@ -55,6 +65,15 @@ def test_run_ipo_matches_jax(iterations):
 def test_run_ipo_folded_hypotheses_keep_their_own_mean():
     """S = 2 hypotheses folded into one batch give each hypothesis the
     trajectory it has alone (a plain mean would scale its gradient by 1/2)."""
+    _folded_hypotheses_keep_their_own_mean()
+
+
+def test_run_ipo_folded_hypotheses_keep_their_own_mean_on_the_plain_step(monkeypatch):
+    _plain_step(monkeypatch)
+    _folded_hypotheses_keep_their_own_mean()
+
+
+def _folded_hypotheses_keep_their_own_mean():
     pose_a, px, k = _scene(7)
     pose_b = _rot_z(pose_a, 0.3)
     cfg_j = jipo.IPOConfig(iterations=60)
@@ -93,11 +112,14 @@ def _far_scene(seed, n=6, j=17):
     return init, px, k
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_run_ipo_far_init_float64_matches_jax(seed):
+@pytest.mark.parametrize("seed,plain", [pytest.param(s, False, id=str(s)) for s in range(4)]
+                         + [pytest.param(s, True, id=f"{s}-plain") for s in range(4)])
+def test_run_ipo_far_init_float64_matches_jax(seed, plain, monkeypatch):
     """From a far init, 60 steps in float64 agree to ~1e-12: the two are the
     same function, and the ~1e-2 drift between them in float32 is the L1
     loss under Adam amplifying f32 rounding, not a fault of the port."""
+    if plain:
+        _plain_step(monkeypatch)
     init, px, k = _far_scene(seed)
     with jax.enable_x64():
         want = jipo.run_ipo(jnp.asarray(init), jnp.asarray(px), jnp.asarray(k),

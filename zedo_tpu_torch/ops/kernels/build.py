@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zedo_tpu_torch"
 # library name -> its source in csrc/
 SOURCES = {"score_mlp": "score_mlp.cu", "score_mlp_split": "score_mlp_split.cu",
-           "score_mlp_probe": "score_mlp_probe.cu", "score_mlp_control": "score_mlp_control.cu"}
+           "score_mlp_probe": "score_mlp_probe.cu", "score_mlp_control": "score_mlp_control.cu",
+           "ipo_step": "ipo_step.cu"}
 
 
 class Library(NamedTuple):

@@ -15,14 +15,16 @@ import torch
 def quaternion_to_matrix(quaternions: torch.Tensor) -> torch.Tensor:
     """Real-part-first quaternions [..., 4] -> rotation matrices [..., 3, 3].
     Non-unit quaternions are handled by the 2/|q|^2 normalization (IPO never
-    normalizes its learned quaternion)."""
+    normalizes its learned quaternion). Entry e is two_s (x_e y_e + z_e w_e),
+    less from 1 on the diagonal: the nine entries in one pass."""
     r, i, j, k = torch.unbind(quaternions, -1)
     two_s = 2.0 / (quaternions * quaternions).sum(-1)
-    o = torch.stack((
-        1 - two_s * (j * j + k * k), two_s * (i * j - k * r), two_s * (i * k + j * r),
-        two_s * (i * j + k * r), 1 - two_s * (i * i + k * k), two_s * (j * k - i * r),
-        two_s * (i * k - j * r), two_s * (j * k + i * r), 1 - two_s * (i * i + j * j),
-    ), dim=-1)
+    n = -r
+    x, y = torch.stack((j, i, i, i, i, j, i, j, i), -1), torch.stack((j, j, k, j, i, k, k, k, i), -1)
+    z, w = torch.stack((k, k, j, k, k, i, j, i, j), -1), torch.stack((k, n, r, r, k, n, n, r, j), -1)
+    o = two_s[..., None] * (x * y + z * w)
+    diagonal = o[..., ::4]
+    diagonal.neg_().add_(1.0)
     return o.reshape(quaternions.shape[:-1] + (3, 3))
 
 

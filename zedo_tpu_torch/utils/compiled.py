@@ -204,14 +204,15 @@ def _restore(snapshot) -> None:
 
 
 def _increase(snapshot) -> list:
-    return [{k: v - saved.get(k, 0) for k, v in counter.items() if v != saved.get(k, 0)}
-            for counter, saved in zip(_COUNTERS, snapshot)]
+    """(counter, name, increase) of each count that moved since `snapshot`:
+    what a replay adds, once a step."""
+    return [(counter, k, v - saved.get(k, 0)) for counter, saved in zip(_COUNTERS, snapshot)
+            for k, v in counter.items() if v != saved.get(k, 0)]
 
 
 def _add(increase) -> None:
-    for counter, inc in zip(_COUNTERS, increase):
-        for k, v in inc.items():
-            counter[k] = counter.get(k, 0) + v
+    for counter, k, v in increase:
+        counter[k] = counter.get(k, 0) + v
 
 
 def _eager(body, schedule, carry, consts, ys, generator):

@@ -19,6 +19,11 @@ the carry is the parameters, Adam's moments and the loss; the per-step input
 is Adam's two bias corrections, read from a [iterations, 2] table at the
 device step counter. `run_ipo(compiled=True)` replays the step as a CUDA
 graph; the eager loop runs the same body.
+
+The step's body follows its inputs (`step_path`): float32 on the card takes
+kernel #4 (ops/kernels/ipo_kernel.py: the gradient in closed form and the
+Adam update in one launch); every other device and dtype takes autograd's
+gradient, the oracle both are held to.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from zedo_tpu_torch.ops.kernels import ipo_kernel
 from zedo_tpu_torch.ops.linalg import inv_intrinsics
 from zedo_tpu_torch.ops.rotations import quaternion_to_matrix
 from zedo_tpu_torch.utils.compiled import scan
@@ -109,11 +115,37 @@ def adam_corrections(iterations: int, dtype: torch.dtype, device: torch.device) 
     return torch.tensor(table, dtype=dtype).reshape(-1, 2).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _tables(cfg: IPOConfig, dtype: torch.dtype, device: torch.device) -> tuple:
+    """The keypoint index and the corrections table (`adam_corrections`) of
+    `cfg` on `device`: made once, each a copy from the host that waits for
+    the device, and only read after."""
+    return (torch.as_tensor(cfg.keypoint_list, device=device),
+            adam_corrections(cfg.iterations, dtype, device))
+
+
+def step_path(device: torch.device, dtype: torch.dtype) -> str:
+    """The body of an IPO step for poses on `device` in `dtype`: "kernel"
+    (ipo_kernel.ipo_step: kernel #4 on the card, its plain version on the
+    CPU) for float32 on CUDA, "autograd" (torch.autograd's gradient) for
+    every other device and dtype."""
+    return "kernel" if torch.device(device).type == "cuda" and dtype == torch.float32 \
+        else "autograd"
+
+
 def _ipo_body(carry, consts, ys, counter, generator, variant, *, cfg: IPOConfig, n_groups: int,
-              reciprocal: bool):
+              reciprocal: bool, path: str):
     """One Adam step: the loss's gradient by autograd, then optax's update
     with the step's bias corrections from the table (their reciprocals on
-    CUDA: `adam_corrections`)."""
+    CUDA: `adam_corrections`); path "kernel": the same step in closed form
+    (ipo_kernel.ipo_step), in place on the carry."""
+    if path == "kernel":
+        keys = len(cfg.keypoint_list)
+        ipo_kernel.ipo_step(consts["packed"], carry, consts["corrections"], counter,
+                            weight=1.0 / (consts["packed"].shape[1] // n_groups * keys * 2),
+                            lr=cfg.lr, lo=cfg.min_scale_t, hi=cfg.max_scale_t, b1=B1, b2=B2,
+                            eps=EPS)
+        return carry
     params, mu, nu = carry["params"], carry["mu"], carry["nu"]
     with torch.enable_grad():
         leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
@@ -148,32 +180,43 @@ def run_ipo(pose: torch.Tensor, cond2d: torch.Tensor, k: torch.Tensor,
     batch = pose.shape[0]
     if batch % n_groups:
         raise ValueError(f"batch {batch} does not split into {n_groups} groups")
-    keylist = torch.as_tensor(cfg.keypoint_list, device=pose.device)
+    keylist, corrections = _tables(cfg, pose.dtype, pose.device)
     if t is None:
         t = init_translation(cond2d, k, cfg.t_norm)
-    consts = {"pose": pose[:, keylist, :].detach(), "target": cond2d[:, keylist, :2].detach(),
-              "t": t.detach(), "k": k.detach(),
-              "corrections": adam_corrections(cfg.iterations, pose.dtype, pose.device)}
+    path = step_path(pose.device, pose.dtype)
+    pose_keys, target = pose[:, keylist, :].detach(), cond2d[:, keylist, :2].detach()
+    if path == "kernel":
+        consts = {"packed": ipo_kernel.pack(pose_keys, target, t.detach(), k.detach()),
+                  "corrections": corrections}
+    else:
+        consts = {"pose": pose_keys, "target": target, "t": t.detach(), "k": k.detach(),
+                  "corrections": corrections}
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=pose.dtype, device=pose.device)
+    # the carry as rows of one buffer: each leaf's value, then the Adam
+    # moments mu and nu, then the rows' L1 sums (the kernel's loss; the
+    # autograd step's is a scalar); rot_vect and scale start at 1
+    names = ["rot_vect", "scale"] + [f"rot_vect_{axe}" for axe in cfg.rot_axes]
+    state = torch.zeros(3 * len(names) + 1, batch, dtype=pose.dtype, device=pose.device)
+    state[:2].fill_(1.0)
 
-    params = {"rot_vect": zeros(batch, 1) + 1, "scale": zeros(batch, 1, 1) + 1}
-    for axe in cfg.rot_axes:
-        params[f"rot_vect_{axe}"] = zeros(batch, 1)
-    carry = {"params": params,
-             "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-             "nu": {n: torch.zeros_like(p) for n, p in params.items()},
-             "loss": zeros()}
+    def leaves(first):
+        return {n: state[first + i].view((batch, 1, 1) if n == "scale" else (batch, 1))
+                for i, n in enumerate(names)}
+
+    carry = {"params": leaves(0), "mu": leaves(len(names)), "nu": leaves(2 * len(names)),
+             "loss": state[-1] if path == "kernel" else state[-1, 0]}
     body = functools.partial(_ipo_body, cfg=cfg, n_groups=n_groups,
-                             reciprocal=pose.device.type == "cuda")
+                             reciprocal=pose.device.type == "cuda", path=path)
     carry, _ = scan(body, (None,) * cfg.iterations, carry, consts, {}, compiled=compiled)
 
     params = carry["params"]
     quat = _quaternion(params, batch, cfg.rot_axes)
     scale = params["scale"]
+    loss = carry["loss"]
+    if path == "kernel":
+        loss = ipo_kernel.group_loss(loss, n_groups, len(cfg.keypoint_list))
     return IPOResult(
         rot_mat=quaternion_to_matrix(quat),
-        translation=consts["t"] * scale.clamp(cfg.min_scale_t, cfg.max_scale_t),
-        quaternion=quat, scale=scale, loss=carry["loss"],
+        translation=t.detach() * scale.clamp(cfg.min_scale_t, cfg.max_scale_t),
+        quaternion=quat, scale=scale, loss=loss,
     )
