@@ -8,6 +8,7 @@ Kernel #3 itself runs in tests/test_torch_gpu.py (`gpu`)."""
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from perfbench.reference import zedo_control as ref_control
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SubVPSDE
 from zedo_tpu_torch.models import control_mlp, score_mlp, score_mlp_cond
+from zedo_tpu_torch.models.nn import tree_map
 from zedo_tpu_torch.ops.kernels import control_kernel as ck
 from zedo_tpu_torch.zeroshot import infant, ipo, oil, pipeline
 
@@ -118,9 +120,9 @@ def test_step_tables_reproduce_the_per_row_forward():
     params = weights.nested(flat_weights(s, seed=8))
     sde = SubVPSDE(n=50, t_max=0.1)
     t = torch.linspace(sde.T, 0.01, 50)
-    consts, static = oil._fast_program(params, cfg, sde, t, oil.OILConfig(iterations=50),
-                                       "kernel3")
-    assert consts["steps"].shape == (50, 6, 128) and static["path"] == "kernel3"
+    consts, forward = oil._fast_program(params, cfg, sde, t, oil.OILConfig(iterations=50),
+                                        oil.FAST_MODELS[control_mlp.apply], "kernel3")
+    assert consts["steps"].shape == (50, 6, 128) and forward is ck.fused_control_forward
     x = rows(16, s, seed=5)
     for i in (0, 17, 49):
         got = ck.fused_control_forward(x, consts["model"], consts["steps"][i])
@@ -164,7 +166,7 @@ def test_fast_path_matches_the_generic_path(monkeypatch):
 
 def test_the_adapter_takes_the_generic_path_off_the_kernel():
     """f32 weights, or the CPU, leave the adapter on the generic path; the
-    conditional model never leaves it; bf16 on the card names kernel #3."""
+    conditional model never leaves it; use_kernel names kernel #3."""
     s = spec(12, 128)
     cfg = port_cfg(s)
     params = weights.nested(flat_weights(s))
@@ -173,7 +175,8 @@ def test_the_adapter_takes_the_generic_path_off_the_kernel():
                           control_mlp.apply) == "kernel3"
     assert oil.model_path(params, cfg, oil.OILConfig(use_kernel=True), score_mlp_cond.apply,
                           condition=torch.zeros(1)) == "generic"
-    assert not oil._control_eligible(params, cfg)
+    bf16 = tree_map(lambda a: a.to(torch.bfloat16), params)
+    assert oil.model_path(bf16, cfg, oil.OILConfig(), control_mlp.apply) == "generic"
     assert ck.kernel_supports(port_cfg(spec(12, 1024, 512))) and not ck.kernel_supports(
         port_cfg(spec(12, 384, 64, 32)))
 
@@ -185,9 +188,9 @@ def test_the_adapter_takes_the_generic_path_off_the_kernel():
     ("cond", True, {"condition": True}, "generic")])
 def test_model_path_names_the_oil_model(network, use_kernel, extra, want):
     """oil.model_path is the one choice of the OIL loop's model (run_oil,
-    _fast_program, pipeline.prebuild_kernel): on the CPU in f32 the prior is
-    plain and the adapter generic unless use_kernel forces a kernel; a
-    conditioned or scale_by_sigma model is always generic; a kernel path
+    _fast_program): on the CPU in f32 the prior is plain and the adapter
+    generic unless use_kernel forces a kernel; a conditioned or scale_by_sigma
+    model is always generic; a kernel path is its FAST_MODELS entry's, which
     names its library."""
     s = spec(12, 128)
     cfg = port_cfg(s)
@@ -199,8 +202,29 @@ def test_model_path_names_the_oil_model(network, use_kernel, extra, want):
     condition = torch.zeros(1) if extra.get("condition") else None
     path = oil.model_path(params, cfg, oil.OILConfig(use_kernel=use_kernel), apply, condition)
     assert path == want
-    assert oil.KERNEL_LIBRARIES.get(path) == {"kernel1": "score_mlp",
-                                              "kernel3": "score_mlp_control"}.get(want)
+    model = oil.FAST_MODELS.get(apply)
+    library = model.library if model is not None and path == model.kernel else None
+    assert library == {"kernel1": "score_mlp", "kernel3": "score_mlp_control"}.get(want)
+
+
+@pytest.mark.parametrize("device,want", [
+    ("cuda", [{"score_mlp", "score_mlp_control", "ipo_step"}]), ("cpu", [])])
+def test_prebuild_kernel_builds_every_library_a_solve_launches(device, want, monkeypatch):
+    """pipeline.prebuild_kernel(mesh) builds, on a CUDA mesh's first rank
+    first, every library that a solve on the card can launch (the fast
+    models' kernels and IPO's step) in one build call; a CPU mesh builds
+    nothing."""
+    from types import SimpleNamespace
+
+    from zedo_tpu_torch.ops.kernels import build
+    from zedo_tpu_torch.parallel import collectives
+
+    builds, firsts = [], []
+    monkeypatch.setattr(build, "build", lambda names: builds.append(set(names)))
+    monkeypatch.setattr(collectives, "main_first", lambda mesh, fn: firsts.append(mesh) or fn())
+    mesh = SimpleNamespace(device=torch.device(device))
+    pipeline.prebuild_kernel(mesh)
+    assert builds == want and firsts == [mesh] * len(want)
 
 
 def test_the_tables_span_and_phase_time_the_control_build():
@@ -288,13 +312,32 @@ def test_the_harness_resolves_the_new_cells(name):
     assert set(cell.limits) and all(np.isfinite(v) for v in cell.limits.values())
 
 
+def tiny_cell(name: str) -> harness.Cell:
+    """perfbench's tests' `tiny` cell with the batch mixes' sizes (n 6,
+    hypotheses 3), which `tiny` gives only the mixes of `batch_solve`."""
+    from perfbench.tests.test_perfbench_cells import tiny
+
+    cell = tiny(name)
+    cell.mix = {**cell.mix, **{k: v for k, v in (("n", 6), ("hypotheses", 3)) if k in cell.mix}}
+    return cell
+
+
 @pytest.mark.parametrize("name", NEW_CELLS)
 def test_the_new_cells_run_on_the_cpu_and_a_moved_answer_is_not_correct(name, monkeypatch):
-    """Each new cell end to end at a tiny size (perfbench's tests' `tiny`):
-    `correct`; then with the program's poses moved by 5 cm, not."""
-    from perfbench.tests.test_perfbench_cells import run_tiny
+    """Each new cell end to end at a tiny size (`tiny_cell`, at most 6 x 3
+    input rows a solve): `correct`; then with the program's poses moved by
+    5 cm, not."""
+    from perfbench.tests.test_perfbench_cells import CPU_INFO
 
-    result = run_tiny(name)
+    cell = tiny_cell(name)
+    rows = cell.mix.get("n", np.inf) * cell.mix.get("hypotheses", np.inf)
+    assert rows <= 6 * 3, f"{name}'s mix solves {rows} rows on the CPU: {cell.mix}"
+
+    def run():
+        return harness.execute(cell, 2**31 + 12345, 0.3, False, torch.device("cpu"),
+                               time.perf_counter(), lambda: dict(CPU_INFO))
+
+    result = run()
     assert result["correct"] is True and result["failed"] == 0, result["checks"]
     assert set(result["metrics"]) == {m["name"] for m in harness.cell(name).end_to_end}
     real_solve = infant.solve_infant_jit
@@ -304,7 +347,7 @@ def test_the_new_cells_run_on_the_cpu_and_a_moved_answer_is_not_correct(name, mo
         return res._replace(poses=res.poses + 0.05)
 
     monkeypatch.setattr(infant, "solve_infant_jit", moved_solve)
-    assert run_tiny(name)["correct"] is False
+    assert run()["correct"] is False
 
 
 @pytest.mark.parametrize("routed,device,want", [

@@ -124,10 +124,11 @@ def test_kernel_wrapper_never_falls_back():
     vecs12 = tsk.step_vectors(packed12, torch.zeros(64))
     with pytest.raises(ValueError, match="unsupported device"):
         tsk.fused_score_forward(torch.zeros(4, 36, device="meta"), packed12, vecs12)
-    assert not toil._kernel_eligible(tree_map(lambda a: a.to(torch.bfloat16), params12), cfg12)
+    bf16_12 = tree_map(lambda a: a.to(torch.bfloat16), params12)
+    assert toil.model_path(bf16_12, cfg12, toil.OILConfig()) == "plain"
     # on the CPU the kernel path is never chosen automatically
     bf16 = tree_map(lambda a: a.to(torch.bfloat16), params)
-    assert not toil._kernel_eligible(bf16, cfg)
+    assert toil.model_path(bf16, cfg, toil.OILConfig()) == "plain"
     before = tsk.launch_counts["fused_score_forward"], dict(tsk.row_launches)
     out = tsk.fused_score_forward(torch.zeros(4, 51), packed, vecs)
     assert out.shape == (4, 51) and np.isfinite(out.numpy()).all()

@@ -151,34 +151,6 @@ def test_table_and_logger_match_the_jax_package(tmp_path):
     assert (out_dir, tb_dir) == (j_out, j_tb) and os.path.isdir(tb_dir)
 
 
-def test_probe_tma_cases_fit_a_block():
-    """tools.probe_tma streams TMA boxes through a ring: every case's ring
-    fits the shared memory it asks for, that request keeps the intended
-    number of blocks on an SM (each block also takes 1 KB of the SM's 228
-    KB), the first case is the split kernel's stream (8 KB tiles, its ring at
-    hidden 1024), and without the card the tool raises."""
-    import torch
-
-    from zedo_tpu_torch.ops.kernels import score_kernel_split as split
-    from zedo_tpu_torch.tools import probe_tma
-
-    sm_bytes = 228 * 1024
-    for case in probe_tma.CASES:
-        need = 1024 + case.stages * case.box_bytes + 2 * 64 * 8
-        assert need <= case.smem_bytes() <= probe_tma.SMEM_LIMIT, case.label()
-        per_block = case.smem_bytes() + 1024
-        assert sm_bytes // per_block == case.blocks_per_sm, case.label()
-        assert case.box_rows % 8 == 0 and case.box_rows <= 256
-        assert (case.private_rows or probe_tma.SHARED_ROWS) % case.box_rows == 0
-    assert len({case.label() for case in probe_tma.CASES}) == len(probe_tma.CASES)
-    base = probe_tma.CASES[0]
-    assert base.box_bytes == split.TILE_BYTES and base.stages == split.ring_stages(1024)
-    assert probe_tma.SMEM_LIMIT == split.SMEM_LIMIT and probe_tma.SOURCE.exists()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs the card"):
-            probe_tma.main([])
-
-
 def test_count_sass_instructions():
     """build.count_sass_instructions counts a kernel's instruction lines of a
     `cuobjdump -sass` listing, not the second encoding line of each

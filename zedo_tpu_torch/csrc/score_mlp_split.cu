@@ -19,7 +19,7 @@
 // in its way is the weight stream: every block has to take in every weight,
 // 8.65 MB at H = 1024, for as many rows as it can keep on chip: 56 operations
 // per byte taken in where the six-launch kernel's 128 x 128 tiles have 64.
-// Measured on an H100 (tools/probe_tma.py, a kernel that only streams): one
+// Measured on an H100 with a probe kernel that only streams: one
 // thread starts at most one TMA box per ~190 ns whatever the box's size up to
 // 8 KB and however deep the ring; several threads of one block reach 65 GB/s
 // an SM on these tiles (64 rows of 128 bytes, 2 KB apart). That is 0.8 ms

@@ -166,6 +166,7 @@ def fused_control_forward_reference(x: torch.Tensor, packed: PackedControlWeight
     return sk.dense(trunk, packed.w_post, packed.bias_post)[:, :c]
 
 
+LIBRARY = "score_mlp_control"  # its name in build.SOURCES
 _lib = None
 
 
@@ -174,7 +175,7 @@ def load_library() -> ctypes.CDLL:
     missing; there is no fallback."""
     global _lib
     if _lib is None:
-        lib = build.load("score_mlp_control")
+        lib = build.load(LIBRARY)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.zedo_control_forward.argtypes = [ptr] + [i32] * 7 + [ptr] * 16
         lib.zedo_control_takes.argtypes = [i32] * 3

@@ -153,6 +153,7 @@ def ipo_step_reference(consts: torch.Tensor, carry: dict, corrections: torch.Ten
         p.copy_(p - upd * lr)
 
 
+LIBRARY = "ipo_step"  # its name in build.SOURCES
 _lib = None
 
 
@@ -161,7 +162,7 @@ def load_library() -> ctypes.CDLL:
     missing; there is no fallback."""
     global _lib
     if _lib is None:
-        lib = build.load("ipo_step")
+        lib = build.load(LIBRARY)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.zedo_ipo_step.argtypes = [ptr, i32, i32] + [ptr] * 18 + [f32] * 9 + [ptr]
         lib.zedo_ipo_step.restype = i32

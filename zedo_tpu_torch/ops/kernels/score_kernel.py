@@ -196,6 +196,7 @@ def fused_score_forward_reference(x: torch.Tensor, packed: PackedScoreWeights,
     return out[:, :c]
 
 
+LIBRARY = "score_mlp"  # its name in build.SOURCES
 _lib = None
 
 
@@ -204,7 +205,7 @@ def load_library() -> ctypes.CDLL:
     missing; there is no fallback."""
     global _lib
     if _lib is None:
-        lib = build.load("score_mlp")
+        lib = build.load(LIBRARY)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.zedo_score_mlp_forward.argtypes = [ptr] + [i32] * 7 + [ptr] * 16
         lib.zedo_score_mlp_product.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr]

@@ -206,8 +206,7 @@ class ZeDOEstimator:
                 else:
                     # this rank's block of the padded rows, solved, ranked and packed here
                     kp, kk, conf = pipeline.shard_rows(self.mesh, "data", len(mask), *buffers)
-                    pipeline.prebuild_kernel(self.mesh, self.params, self.model_cfg,
-                                             self.zcfg.oil)
+                    pipeline.prebuild_kernel(self.mesh)
             generator = torch.Generator(self.device).manual_seed(self.seed)
             with torch.no_grad():
                 result = pipeline.solve_jit(self.params, self.model_cfg, self.sde, self.sampler,

@@ -151,10 +151,8 @@ def solve_infant(params, model_apply, model_cfg, sde, sampler, cfg: ZeDOConfig,
     [N, S, j, 3] poses, [N, S, 1, 3] translations and, under
     OILConfig.track_reproj, the [S, steps] reprojection trace.
 
-    model_apply: score_mlp.apply (the fast path, kernel #1 on bf16 weights on
-    the card), control_mlp.apply (the fast path, kernel #3, on bf16 weights on
-    the card; the generic path elsewhere) or score_mlp_cond.apply (the generic
-    path).
+    model_apply: score_mlp.apply or control_mlp.apply (on bf16 weights on the
+    card, its kernel: oil.model_path) or score_mlp_cond.apply (the generic path).
     condition: optional per-sample model condition [N, j, c] (the --cond
     CLI's normalized 2D keypoints), tiled with the rows.
     generator: the generic path's noise; reproj_weight: optional [N]
@@ -187,15 +185,15 @@ def solve_infant_sharded(mesh, params, model_apply, model_cfg, sde, sampler, cfg
     N frames with `solve_infant_jit` and gets the global result. `condition`
     [N, j, c] is sharded with the batch; the conditional model takes the
     generic path on each rank, with `generator` seeded alike on every rank,
-    and the ControlNet adapter on bf16 weights kernel #3, whose library the
-    first rank builds first. Under
+    and the ControlNet adapter on bf16 weights kernel #3; the first rank
+    builds the kernels first (pipeline.prebuild_kernel). Under
     OILConfig.track_reproj the [S, steps] trace is averaged over the data
     axis (pad N with data.sharding.pad_batch and pass its mask as
     `row_mask`)."""
     weight = pipeline._pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
     cond2d, k, condition, weight = pipeline.shard_rows(mesh, data_axis, len(cond2d), cond2d,
                                                        k, condition, weight)
-    pipeline.prebuild_kernel(mesh, params, model_cfg, cfg.oil, model_apply, condition)
+    pipeline.prebuild_kernel(mesh)
     res = solve_infant_jit(params, model_apply, model_cfg, sde, sampler, cfg, cluster_poses,
                            cond2d, k, pelvis_mode=pelvis_mode, refine_t_from=refine_t_from,
                            generator=generator, reproj_weight=weight, condition=condition,

@@ -12,11 +12,11 @@ deterministic affine step
     x' = x + c1*x - c2*model(x, t*999)
 with c1 = 0.5*beta(t)/N and c2 = g2(t)/std(t)/N, the per-step time
 embeddings (or, on the kernel path, the per-step [5, H] layer vectors)
-precomputed. The ControlNet adapter (`control_mlp.apply`, unconditioned)
-takes it too where kernel #3 does (`use_kernel`: bf16 weights on the card
-at a width the kernel takes, or forced, its plain version on the CPU): its
-weights packed and its per-step [6, H] vectors built once a solve (the span
-`zedo.oil.tables`, the Stopwatch phase `oil_tables`). Every other model
+precomputed. `FAST_MODELS` holds the fast path's models, one entry each
+(its kernel, its path off the kernel, its operands, its forward): the
+ControlNet adapter (`control_mlp.apply`, unconditioned) takes it too where
+kernel #3 does (`use_kernel`), its per-step [6, H] vectors built once a solve
+(the span `zedo.oil.tables`, the Stopwatch phase `oil_tables`). Every other model
 (the adapters elsewhere, the conditional model, a `scale_by_sigma` model)
 or sampler takes the generic path: one `PCSampler.zedo_pc_step` a step
 through the predictor/corrector registries, with noise from a per-call
@@ -42,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -71,11 +71,8 @@ class OILConfig:
     # steps that keep the IPO translation before re-solving each step;
     # the reference uses iterations // 5
     fixed_t_steps: Optional[int] = None
-    # None = auto: the fused CUDA score kernel when the params are bf16, the
-    # device is CUDA and the architecture is one the kernel takes (kernel #1,
-    # or kernel #3 for the ControlNet adapter, which takes the fast path only
-    # then). True forces the kernel wrapper (its plain version for CPU
-    # tensors)
+    # None = auto: the model's kernel where its contract holds (model_path);
+    # True forces the kernel wrapper (its plain version for CPU tensors)
     use_kernel: Optional[bool] = None
     # evaluate the score network every k-th step and reuse its output in
     # between (opt-in; 1 = exact reference dynamics)
@@ -206,8 +203,8 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
     x0: [B, j, 3] rotated init pose; t0: [B, 1, 3] IPO translation;
     cond2d: [B, j, >=2]; conf: [B, j] or None.
     model_apply: a score_mlp.apply-compatible function (the ControlNet or
-    conditional adapter); any model but the plain ScoreMLP and the ControlNet
-    adapter on kernel #3 takes the generic path. generator: the noise of the
+    conditional adapter); a model outside FAST_MODELS, or off its kernel but
+    for the plain ScoreMLP, takes the generic path. generator: the noise of the
     generic path (a generator on x0's device; default: seeded 0); the fast
     path draws none.
     reproj_weight: optional [B] per-row weights of the track_reproj trace,
@@ -233,21 +230,22 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
     carry = {"x": x0, "t": t0}
     if cfg.score_reuse > 1:
         carry["out"] = torch.zeros_like(x0)
+    model_apply = model_apply or score_mlp.apply
     path = model_path(params, model_cfg, cfg, model_apply, condition)
     if path != "generic" and _fast_supported(sde, sampler):
+        model = FAST_MODELS[model_apply]
         tables = (profiling.phase(stopwatch, "oil_tables", x0.device, span="zedo.oil.tables")
-                  if path == "kernel3" else contextlib.nullcontext())
+                  if path == model.kernel and model.timed_tables else contextlib.nullcontext())
         with tables:
-            model_consts, static = _fast_program(params, model_cfg, sde, timestamps, cfg, path)
-        consts.update(model_consts)
-        body = functools.partial(_fast_body, cfg=cfg, n_groups=n_groups, **static)
+            program, forward = _fast_program(params, model_cfg, sde, timestamps, cfg, model, path)
+        consts.update(program)
+        body = functools.partial(_fast_body, cfg=cfg, n_groups=n_groups, forward=forward)
     else:
         if generator is None:
             generator = torch.Generator(device=x0.device).manual_seed(0)
         consts.update(ts=timestamps, params=params, condition=condition)
         body = functools.partial(_generic_body, cfg=cfg, n_groups=n_groups, sde=sde,
-                                 sampler=sampler, model_cfg=model_cfg,
-                                 model_apply=model_apply or score_mlp.apply)
+                                 sampler=sampler, model_cfg=model_cfg, model_apply=model_apply)
     carry, ys = scan(body, _schedule(cfg), carry, consts, _trace_tables(cfg, n_groups, x0.device),
                      generator=None if body.func is _fast_body else generator,
                      compiled=compiled)
@@ -255,41 +253,48 @@ def run_oil(params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: SDE,
                      reproj_px=ys["reproj_px"].t())
 
 
-def _kernel_eligible(params, model_cfg) -> bool:
-    """Kernel contract: an architecture the CUDA kernel takes, bf16 weights
-    and a CUDA device."""
-    w = params["post_dense"]["weight"]
-    return (sk.kernel_supports(model_cfg) and w.dtype == torch.bfloat16
-            and w.device.type == "cuda")
+class FastModel(NamedTuple):
+    """A model of the fast path (FAST_MODELS) and its kernel."""
+
+    kernel: str  # model_path's name of its kernel path
+    off: str  # its path off the kernel: "plain" (score_mlp.apply in the fast step) or "generic"
+    supports: Callable  # model_cfg -> whether the kernel takes the architecture
+    library: str  # the kernel's library (ops/kernels/build.py)
+    operands: Callable  # (params, model_cfg, temb_table, dtype, gn_dtype) -> (packed, steps)
+    forward: Callable  # (rows [B, C], packed, steps[i]) -> [B, C]
+    timed_tables: bool  # operands timed as the Stopwatch phase oil_tables (zedo.oil.tables)
 
 
-def _control_eligible(params, model_cfg) -> bool:
-    """Kernel #3's contract: an architecture it takes, bf16 weights and a
-    CUDA device."""
-    w = params["post_dense"]["weight"]
-    return (ck.kernel_supports(model_cfg) and w.dtype == torch.bfloat16
-            and w.device.type == "cuda")
+def _score_operands(params, model_cfg, temb_table, dtype, gn_dtype):
+    packed = sk.pack_weights(params, model_cfg, dtype=dtype, gn_dtype=gn_dtype)
+    return packed, sk.step_vectors(packed, temb_table)
+
+
+def _control_operands(params, model_cfg, temb_table, dtype, gn_dtype):
+    return (ck.pack_weights(params, model_cfg, dtype=dtype, gn_dtype=gn_dtype),
+            ck.step_vectors(params, model_cfg, temb_table))
+
+
+FAST_MODELS = {  # by the model's apply
+    score_mlp.apply: FastModel("kernel1", "plain", sk.kernel_supports, sk.LIBRARY,
+                               _score_operands, sk.fused_score_forward, timed_tables=False),
+    control_mlp.apply: FastModel("kernel3", "generic", ck.kernel_supports, ck.LIBRARY,
+                                 _control_operands, ck.fused_control_forward, timed_tables=True),
+}
 
 
 def model_path(params, model_cfg, cfg: OILConfig, model_apply=None, condition=None) -> str:
-    """The model the OIL loop runs on these params: "kernel1" (kernel #1),
-    "kernel3" (kernel #3, the ControlNet adapter), "plain" (score_mlp.apply
-    in the fast step) or "generic" (one `zedo_pc_step` a step). A sampler the
-    fast path does not take sends every model to the generic path besides."""
-    if condition is not None or model_cfg.scale_by_sigma:
+    """The model the OIL loop runs on these params: its FAST_MODELS entry's
+    kernel path ("kernel1", "kernel3") where the kernel's contract holds (an
+    architecture it takes, bf16 weights on CUDA) or use_kernel forces it, else
+    the path off it ("plain", "generic"); any other model, a condition or
+    scale_by_sigma: "generic", as under a sampler the fast path does not take."""
+    model = FAST_MODELS.get(score_mlp.apply if model_apply is None else model_apply)
+    if model is None or condition is not None or model_cfg.scale_by_sigma:
         return "generic"
-    if model_apply is control_mlp.apply:
-        kernel, eligible, off = "kernel3", _control_eligible, "generic"
-    elif model_apply is None or model_apply is score_mlp.apply:
-        kernel, eligible, off = "kernel1", _kernel_eligible, "plain"
-    else:
-        return "generic"
-    use = cfg.use_kernel if cfg.use_kernel is not None else eligible(params, model_cfg)
-    return kernel if use else off
-
-
-# the library of each kernel path (ops/kernels/build.py)
-KERNEL_LIBRARIES = {"kernel1": "score_mlp", "kernel3": "score_mlp_control"}
+    w = params["post_dense"]["weight"]
+    eligible = model.supports(model_cfg) and w.dtype == torch.bfloat16 and w.device.type == "cuda"
+    return model.kernel if (eligible if cfg.use_kernel is None else cfg.use_kernel) else model.off
 
 
 def _geometry_step(consts, ys, counter, resolve: bool, x, t_cur, cfg: OILConfig, n_groups: int):
@@ -303,13 +308,12 @@ def _geometry_step(consts, ys, counter, resolve: bool, x, t_cur, cfg: OILConfig,
     return x + grad, t_cur
 
 
-def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig, path: str):
+def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig,
+                  model: FastModel, path: str):
     """The fast path's per-step tables and model operands (computed once per
-    solve, outside the scan) and its static arguments; `path` is
-    model_path's (kernel #3's: the adapter's packed weights and [steps, 6, H]
-    step vectors)."""
-    # model compute dtype follows the params; geometry stays f32
-    model_dtype = params["post_dense"]["weight"].dtype
+    solve, outside the scan) and its model's forward: on `model`'s kernel
+    path its operands (packed weights, [steps, L, H] step vectors) and its
+    kernel, off it the plain ScoreMLP's on the time embeddings."""
     t = timestamps
     beta = sde.beta_min + t * (sde.beta_max - sde.beta_min)
     discount = 1.0 - torch.exp(-2.0 * sde.beta_min * t - (sde.beta_max - sde.beta_min) * t ** 2)
@@ -322,41 +326,36 @@ def _fast_program(params, model_cfg, sde: SubVPSDE, timestamps, cfg: OILConfig, 
     consts = {"c1": 0.5 * beta * inv_n, "c2": g2 / std * inv_n}
 
     temb_table = score_mlp.time_embedding(params, model_cfg, t * CONTINUOUS_LABEL_SCALE)
-
-    gn_dtype = torch.float32 if cfg.gn_fp32 else None
-    if path == "kernel3":
-        packed = ck.pack_weights(params, model_cfg, dtype=model_dtype, gn_dtype=gn_dtype)
-        consts.update(model=packed,
-                      steps=ck.step_vectors(params, model_cfg, temb_table).contiguous())
-    elif path == "kernel1":
-        packed = sk.pack_weights(params, model_cfg, dtype=model_dtype, gn_dtype=gn_dtype)
-        # [steps, 5, H] per-step layer vectors, precomputed outside the scan
-        consts.update(model=packed, steps=sk.step_vectors(packed, temb_table).contiguous())
-    else:
+    if path != model.kernel:
         consts.update(model=params, steps=temb_table)
-    return consts, {"model_cfg": model_cfg, "model_dtype": model_dtype, "path": path}
+        return consts, functools.partial(_plain_forward, model_cfg=model_cfg)
+    # model compute dtype follows the params; geometry stays f32
+    gn_dtype = torch.float32 if cfg.gn_fp32 else None
+    packed, steps = model.operands(params, model_cfg, temb_table,
+                                   params["post_dense"]["weight"].dtype, gn_dtype)
+    consts.update(model=packed, steps=steps.contiguous())
+    return consts, model.forward
+
+
+def _plain_forward(rows, params, temb, *, model_cfg):
+    """score_mlp.apply_with_temb on [B, C] rows in the model's dtype."""
+    dtype = params["post_dense"]["weight"].dtype
+    out = score_mlp.apply_with_temb(params, model_cfg, rows.to(dtype), temb)
+    return out.to(rows.dtype).reshape(rows.shape)
 
 
 def _fast_body(carry, consts, ys, counter, generator, variant, *, cfg: OILConfig,
-               n_groups: int, model_cfg, model_dtype, path: str):
-    """One fast-path step: geometry, the model (kernel #1, kernel #3 for the
-    ControlNet adapter, or the plain ScoreMLP) where the variant evaluates
-    it, the deterministic update."""
+               n_groups: int, forward):
+    """One fast-path step: geometry, the model's forward (a FAST_MODELS
+    kernel, or the plain ScoreMLP) where the variant evaluates it, the
+    deterministic update."""
     resolve, evaluate = variant
     x, t_cur = _geometry_step(consts, ys, counter, resolve, carry["x"], carry["t"], cfg,
                               n_groups)
     out = carry.get("out")
     if evaluate:
         step = _at(consts["steps"], counter)
-        if path == "kernel3":
-            out = ck.fused_control_forward(x.reshape(x.shape[0], -1), consts["model"], step)
-            out = out.reshape(x.shape)
-        elif path == "kernel1":
-            out = sk.fused_score_forward(x.reshape(x.shape[0], -1), consts["model"], step)
-            out = out.reshape(x.shape)
-        else:
-            out = score_mlp.apply_with_temb(consts["model"], model_cfg, x.to(model_dtype),
-                                            step).to(x.dtype)
+        out = forward(x.reshape(x.shape[0], -1), consts["model"], step).reshape(x.shape)
     c1, c2 = _at(consts["c1"], counter), _at(consts["c2"], counter)
     new = {"x": x + c1 * x - c2 * out, "t": t_cur}
     if "out" in carry:

@@ -28,10 +28,11 @@ import torch
 from zedo_tpu_torch.diffusion.sampling import PCSampler
 from zedo_tpu_torch.diffusion.sde import SDE
 from zedo_tpu_torch.models import score_mlp
+from zedo_tpu_torch.ops.kernels import build, ipo_kernel
 from zedo_tpu_torch.parallel import collectives
 from zedo_tpu_torch.utils import profiling
 from zedo_tpu_torch.zeroshot.ipo import IPOConfig, run_ipo
-from zedo_tpu_torch.zeroshot.oil import OILConfig, OILResult, run_oil
+from zedo_tpu_torch.zeroshot.oil import FAST_MODELS, OILConfig, OILResult, run_oil
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,17 +199,13 @@ def shard_rows(mesh, data_axis: str, n: int, *arrays):
     return [put(a) for a in arrays]
 
 
-def prebuild_kernel(mesh, params, model_cfg, oil_cfg, model_apply=None, condition=None) -> None:
-    """Build the kernel that the OIL loop will launch on these params and
-    model (oil.model_path's) on the mesh's first rank before the others load
-    it."""
-    from zedo_tpu_torch.zeroshot.oil import KERNEL_LIBRARIES, model_path
-
-    name = KERNEL_LIBRARIES.get(model_path(params, model_cfg, oil_cfg, model_apply, condition))
-    if mesh.device.type == "cuda" and name is not None:
-        from zedo_tpu_torch.ops.kernels import build
-
-        collectives.main_first(mesh, lambda: build.build((name,)))
+def prebuild_kernel(mesh) -> None:
+    """Build every library that a solve on the card can launch (the fast OIL
+    models' kernels, oil.FAST_MODELS, and IPO's step) on the mesh's first
+    rank before the others load them."""
+    if mesh.device.type == "cuda":
+        names = tuple(m.library for m in FAST_MODELS.values()) + (ipo_kernel.LIBRARY,)
+        collectives.main_first(mesh, lambda: build.build(names))
 
 
 def reduce_trace(res: SolveResult, mesh, data_axis: str) -> SolveResult:
@@ -249,7 +246,7 @@ def solve_sharded(mesh, params: dict, model_cfg: score_mlp.ScoreMLPConfig, sde: 
     dropped by sharding.unpad)."""
     weight = _pad_aware_reproj_weight(mesh, data_axis, cfg, row_mask)
     cond2d, conf, k, weight = shard_rows(mesh, data_axis, len(cond2d), cond2d, conf, k, weight)
-    prebuild_kernel(mesh, params, model_cfg, cfg.oil, model_apply)
+    prebuild_kernel(mesh)
     res = solve_jit(params, model_cfg, sde, sampler, cfg, cluster_poses, cond2d, conf, k,
                     model_apply=model_apply, generator=generator, reproj_weight=weight,
                     stopwatch=stopwatch)
